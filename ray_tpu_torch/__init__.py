@@ -5,16 +5,21 @@ its module layout and public names so each counterpart is easy to find,
 and imports neither ``jax`` nor anything of ``ray_tpu`` (a module it
 needs that has no JAX in it is copied, not imported).
 
-This slice is the LLM serving path on the GPT family:
+The slices so far are LLM serving and training on the GPT family:
 
   * ops/attention.py        — dense causal attention (plain PyTorch)
   * ops/paged_decode.py     — paged decode/verify attention, CUDA kernel
                                in ops/csrc/paged_decode.cu
-  * ops/flash.py            — flash attention forward, CUDA kernel in
-                               ops/csrc/flash_fwd.cu
+  * ops/flash.py            — flash attention forward (with and without
+                               the LSE, ops/csrc/flash_fwd.cu), fused and
+                               split backward (ops/csrc/flash_bwd.cu),
+                               the FlashAttention autograd.Function
   * ops/flash_attention.py  — the flash_attention entry point
-  * models/gpt.py           — GPTConfig, init and the inference forwards
-  * models/convert.py       — weights to and from the JAX param tree
+  * models/gpt.py           — GPTConfig, init, the inference forwards,
+                               the training forward, loss and train step
+  * models/convert.py       — weights and optimizer state to and from
+                               the JAX/optax trees
+  * optim.py                — optax's adamw and apply_updates
   * llm/                    — paged KV pool, prefix cache, engine
   * serve/llm.py            — byte tokenizer and the LLMServer handler
 

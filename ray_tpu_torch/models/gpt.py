@@ -1,5 +1,4 @@
-"""GPT-2-class decoder-only transformer, inference half (port of
-ray_tpu/models/gpt.py).
+"""GPT-2-class decoder-only transformer (port of ray_tpu/models/gpt.py).
 
 Params are a plain dict with the JAX tree's names and stacked shapes
 (``wq [L, m, h, d]``, ``wo [L, h, d, m]``, tied ``wte [V, m]``), so
@@ -12,25 +11,39 @@ f32 with population variance and a scale but no bias, GELU with the
 tanh approximation (``jax.nn.gelu``'s default), logits through the tied
 embedding.
 
+Training: ``forward`` is the grad-enabled forward over f32 master
+params, cast to ``cfg.dtype`` inside as the JAX model casts, with the
+JAX model's remat policies as ``torch.utils.checkpoint`` regions;
+``loss_fn`` is next-token cross-entropy through ``_xent``, whose
+backward emits dlogits in the logits' dtype; ``make_train_step`` builds
+the ``(state, tokens) -> (state, {"loss"})`` step over an optimizer of
+ray_tpu_torch/optim.py.
+
 The inference forwards (continuous-batching engine, llm/engine.py):
 ``forward_prefill`` runs the whole prompt and exports each layer's K/V
 for the paged pool; ``forward_decode`` runs one token per sequence,
 writes its K/V into the pool and attends through the paged decode
 kernel; ``forward_prefill_chunk`` runs one prompt chunk against the
-pool context. ``forward_verify`` and training belong to later slices.
+pool context. They run under ``torch.no_grad()``. ``forward_verify``
+belongs to a later slice.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from .._device import resolve_device
 from ..ops.attention import NEG_INF, causal_attention
+from .._tree import tree_leaves, tree_map
+from ..optim import apply_updates
 
 
 @dataclass(frozen=True)
@@ -43,9 +56,20 @@ class GPTConfig:
     n_kv_head: Optional[int] = None
     d_ff: Optional[int] = None  # default 4*d_model
     dtype: Any = torch.bfloat16
+    remat: bool = False
     use_flash: bool = False
-    # Kept for the JAX signature; the CUDA flash kernel picks its own tile.
+    # The CUDA flash kernels pick their own 64 x 64 tile; as in the JAX
+    # package this sets the padded lengths by which the backward picks
+    # the fused or the split kernels.
     flash_block: int = 512
+    # Rematerialization policy when remat=True (the JAX model's names):
+    #   "dots_no_batch" — keep only the weight matmuls' outputs
+    #   "dots"          — keep every matmul output, recompute the
+    #       elementwise ops (layernorm, GELU) and the attention
+    #   "mlp_only"      — checkpoint only each block's MLP
+    #   "dots_flash"    — "dots" plus the flash kernel's o and LSE: the
+    #       backward never re-runs the attention forward
+    remat_policy: str = "dots_flash"
 
     @property
     def head_dim(self) -> int:
@@ -152,26 +176,35 @@ def _mlp(x, p):
     return ff @ p["wm"]
 
 
+def _attn_in(x, p):
+    """The q, k, v projections [b, s, heads, head_dim] of x [b, s, m]."""
+    h = _layernorm(x, p["ln1"])
+    return _proj(h, p["wq"]), _proj(h, p["wk"]), _proj(h, p["wv"])
+
+
+def _attend(q, k, v, cfg: GPTConfig):
+    if cfg.use_flash:
+        from ..ops.flash_attention import flash_attention
+
+        # The kernels read the [b, s, h, d] projections through their
+        # strides (layout "bshd"): no transposes around them, and
+        # gradients come back in the same layout.
+        return flash_attention(q, k, v, causal=True,
+                               block_size=cfg.flash_block, layout="bshd")
+    return causal_attention(q, k, v)
+
+
+def _attn_out_mlp(x, o, p):
+    x = x + _out_proj(o, p["wo"])
+    return x + _mlp(x, p)
+
+
 def _block(x, p, cfg: GPTConfig):
     """One transformer block on x [b, s, m]; returns (x, (k, v)) with
     this layer's K/V projections as [b, s, kv_heads, head_dim] — the
     prefill path hands them to the paged KV pool."""
-    h = _layernorm(x, p["ln1"])
-    q = _proj(h, p["wq"])            # [b, s, h, d]
-    kk = _proj(h, p["wk"])
-    v = _proj(h, p["wv"])
-    if cfg.use_flash:
-        from ..ops.flash_attention import flash_attention
-
-        # The kernel reads the [b, s, h, d] projections through their
-        # strides (layout "bshd"): no transposes around it.
-        o = flash_attention(q, kk, v, causal=True,
-                            block_size=cfg.flash_block, layout="bshd")
-    else:
-        o = causal_attention(q, kk, v)
-    x = x + _out_proj(o, p["wo"])
-    x = x + _mlp(x, p)
-    return x, (kk, v)
+    q, kk, v = _attn_in(x, p)
+    return _attn_out_mlp(x, _attend(q, kk, v, cfg), p), (kk, v)
 
 
 def _embed(params, tokens, positions, dt):
@@ -184,10 +217,160 @@ def _logits(params, x, dt):
     return x @ params["wte"].to(dt).T
 
 
-@torch.no_grad()
 def forward(params, tokens, cfg: GPTConfig):
-    """tokens [b, s] int -> logits [b, s, vocab] (cfg.dtype)."""
-    return forward_prefill(params, tokens, cfg)[0]
+    """tokens [b, s] int -> logits [b, s, vocab] (cfg.dtype).
+
+    The training forward (ray_tpu/models/gpt.py:214-279), grad-enabled:
+    ``params`` are the f32 masters, cast to ``cfg.dtype`` inside, so
+    gradients land in f32 as the JAX model's do. With ``cfg.remat`` each
+    block runs under ``cfg.remat_policy`` (``_train_block``). Called on
+    tensors that do not require grad, it is the plain forward (the flash
+    attention then takes its primal kernel).
+    """
+    _remat_policy(cfg)
+    dt = cfg.dtype
+    s = tokens.shape[1]
+    x = _embed(params, tokens, torch.arange(s, device=tokens.device), dt)
+    # One cast of each stacked weight, then per-layer views (unbind's
+    # backward stacks the layers' gradients in one op).
+    layers = {k: (v.to(dt) if k in _MATMUL_KEYS else v).unbind(0)
+              for k, v in params["blocks"].items()}
+    for i in range(cfg.n_layer):
+        x = _train_block(x, {k: v[i] for k, v in layers.items()}, cfg)
+    return _logits(params, x, dt)
+
+
+# Remat policies (ray_tpu/models/gpt.py:236-265). A checkpointed region
+# keeps the outputs of the ops its policy names and recomputes everything
+# else in the backward (torch.utils.checkpoint's selective checkpointing, the
+# counterpart of jax.checkpoint_policies). The weight matmuls are
+# aten.mm/addmm (``x @ w`` folds the batch into rows); dense attention's
+# score and PV products are aten.bmm, matmuls WITH batch dims, which
+# "dots_no_batch" does not keep. "dots_flash" keeps the flash kernel's
+# o and LSE by running the attention outside the checkpointed regions,
+# so its residuals are saved and the backward never re-runs its forward.
+_ATEN = torch.ops.aten
+_WEIGHT_DOTS = (_ATEN.mm.default, _ATEN.addmm.default)
+_ALL_DOTS = _WEIGHT_DOTS + (_ATEN.bmm.default, _ATEN.baddbmm.default)
+_REMAT_SAVE = {"dots_no_batch": _WEIGHT_DOTS, "dots": _ALL_DOTS,
+               "dots_flash": _ALL_DOTS}
+
+
+def _remat_policy(cfg: GPTConfig) -> Optional[str]:
+    """The policy a block runs under: None without remat; "dots_flash"
+    without flash attention becomes "dots_no_batch", as in the JAX model
+    (dense attention would keep O(seq^2) score products)."""
+    if not cfg.remat:
+        return None
+    name = cfg.remat_policy
+    if name == "mlp_only":
+        return name
+    if name not in _REMAT_SAVE:
+        raise ValueError(f"remat_policy={name!r}; valid: "
+                         f"{sorted(_REMAT_SAVE)} or 'mlp_only'")
+    if name == "dots_flash" and not cfg.use_flash:
+        return "dots_no_batch"
+    return name
+
+
+def _remat(fn, name, *args):
+    """fn(*args) as a checkpointed region keeping the outputs of the ops
+    of policy ``name``."""
+    keep = _REMAT_SAVE[name]
+
+    def policy(ctx, op, *a, **kw):
+        return (CheckpointPolicy.MUST_SAVE if op in keep
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return checkpoint(fn, *args, use_reentrant=False, context_fn=functools
+                      .partial(create_selective_checkpoint_contexts, policy))
+
+
+def _train_block(x, p, cfg: GPTConfig):
+    """One block of the training forward under cfg's remat policy."""
+    name = _remat_policy(cfg)
+    if name is None:
+        return _block(x, p, cfg)[0]
+    if name == "mlp_only":
+        # Attention keeps its residuals; the MLP is recomputed whole.
+        o = _attend(*_attn_in(x, p), cfg)
+        x = x + _out_proj(o, p["wo"])
+        return x + checkpoint(_mlp, x, p, use_reentrant=False)
+    if name == "dots_flash":
+        q, k, v = _remat(_attn_in, name, x, p)
+        return _remat(_attn_out_mlp, name, x, _attend(q, k, v, cfg), p)
+    return _remat(lambda x, p: _block(x, p, cfg)[0], name, x, p)
+
+
+class _Xent(torch.autograd.Function):
+    """Mean next-token cross-entropy with the JAX model's hand-written
+    VJP (ray_tpu/models/gpt.py:551-583): the forward keeps the logits as
+    they are (no f32 copy saved for the backward, only the f32
+    logsumexp), and the backward emits dlogits = (softmax - onehot)·g/n
+    in the LOGITS' dtype (bf16 on the training path), not f32."""
+
+    @staticmethod
+    def forward(ctx, logits, targets):
+        targets = targets.long()
+        logz = torch.logsumexp(logits.float(), dim=-1)
+        gold = logits.gather(-1, targets[..., None])[..., 0].float()
+        ctx.save_for_backward(logits, targets, logz)
+        return (logz - gold).mean()
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, targets, logz = ctx.saved_tensors
+        p = torch.exp(logits.float() - logz[..., None])
+        p.scatter_add_(-1, targets[..., None],
+                       torch.full_like(logz[..., None], -1.0))
+        return (p * (g / logz.numel())).to(logits.dtype), None
+
+
+def _xent(logits, targets):
+    return _Xent.apply(logits, targets)
+
+
+def loss_fn(params, tokens, cfg: GPTConfig):
+    """Next-token cross-entropy (targets = tokens shifted left)."""
+    logits = forward(params, tokens[:, :-1], cfg)
+    return _xent(logits, tokens[:, 1:])
+
+
+def loss_and_grads(params, tokens, cfg: GPTConfig):
+    """(loss, grads) of ``loss_fn`` at ``params`` — the port's
+    ``jax.value_and_grad(loss_fn)``; grads mirror the params tree."""
+    live = tree_map(lambda t: t.detach().requires_grad_(), params)
+    with torch.enable_grad():
+        loss = loss_fn(live, tokens, cfg)
+        grads = iter(torch.autograd.grad(loss, tree_leaves(live)))
+    return loss.detach(), tree_map(lambda _: next(grads), live)
+
+
+def make_train_step(cfg: GPTConfig, optimizer, mesh=None, rules=None,
+                    donate: bool = True):
+    """Build the train step: (state, tokens) -> (state, {"loss": loss}),
+    state = {"params", "opt_state", "step"}
+    (ray_tpu/models/gpt.py:592-618).
+
+    ``optimizer`` has optax's ``update(grads, opt_state, params)``
+    (ray_tpu_torch/optim.py ``adamw``). ``donate`` updates the params in
+    place, the counterpart of jit's donated buffers. ``mesh`` and
+    ``rules`` belong to the multi-GPU slice (ROADMAP.md Queue 1 item 13).
+    """
+    if mesh is not None or rules is not None:
+        raise NotImplementedError(
+            "ray_tpu_torch: mesh/rules arrive with the multi-GPU slice "
+            "(ROADMAP.md Queue 1 item 13)")
+
+    def step(state, tokens):
+        loss, grads = loss_and_grads(state["params"], tokens, cfg)
+        updates, opt_state = optimizer.update(grads, state["opt_state"],
+                                              state["params"])
+        params = apply_updates(state["params"], updates, inplace=donate)
+        return ({"params": params, "opt_state": opt_state,
+                 "step": state["step"] + 1}, {"loss": loss})
+
+    return step
 
 
 @torch.no_grad()

@@ -6,7 +6,10 @@ PyTorch headers: a build takes seconds, not minutes). Libraries land in
 ``ops/build/`` (listed in .gitignore), named by a hash of the source
 and the flags, so an edited source is rebuilt and an unchanged one is
 reused. All missing libraries are built together, one ``nvcc`` process
-per source started at once.
+per source started at once. ``-Xptxas -v`` makes nvcc report each
+kernel's registers, shared memory and spills; that report is kept
+beside the library (``build_report``), so a library reused from an
+earlier build still has it.
 
 Every C entry point launches on the stream it is handed (the wrapper
 passes ``torch.cuda.current_stream().cuda_stream``) and returns
@@ -29,7 +32,8 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+              "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -60,13 +64,18 @@ def _target(src: Path) -> Path:
     return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
 
 
+def _report_path(target: Path) -> Path:
+    return target.with_suffix(".log")
+
+
 def build_all() -> Dict[str, Path]:
     """Compile every source whose library is missing, all at once;
     return {name: library path}. Raises with nvcc's output on failure."""
     global build_seconds
     srcs = sources()
     targets = {name: _target(src) for name, src in srcs.items()}
-    todo = {n: t for n, t in targets.items() if not t.exists()}
+    todo = {n: t for n, t in targets.items()
+            if not (t.exists() and _report_path(t).exists())}
     if not todo:
         return targets
     nvcc = _nvcc()
@@ -83,17 +92,25 @@ def build_all() -> Dict[str, Path]:
     errors = []
     for name, (tmp, tgt, proc) in procs.items():
         out, _ = proc.communicate()
+        text = out.decode(errors="replace")
         if proc.returncode != 0:
             errors.append(f"--- nvcc {srcs[name].name} (exit "
-                          f"{proc.returncode}):\n{out.decode(errors='replace')}")
+                          f"{proc.returncode}):\n{text}")
             tmp.unlink(missing_ok=True)
         else:
+            _report_path(tgt).write_text(text)
             os.replace(tmp, tgt)
     build_seconds = time.perf_counter() - t0
     if errors:
         raise RuntimeError("ray_tpu_torch: kernel build failed\n"
                            + "\n".join(errors))
     return targets
+
+
+def build_report(name: str) -> str:
+    """nvcc's output (the ``-Xptxas -v`` report) of the build of
+    ``csrc/<name>.cu`` that made its current library."""
+    return _report_path(build_all()[name]).read_text()
 
 
 def library(name: str) -> ctypes.CDLL:

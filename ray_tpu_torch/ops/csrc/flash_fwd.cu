@@ -1,9 +1,15 @@
-// Flash attention forward (primal, no LSE) for Hopper (sm_90a).
+// Flash attention forward for Hopper (sm_90a), with and without the LSE.
 //
-// Replaces the TPU kernel ray_tpu/ops/pallas/flash.py `_fwd_kernel`
-// (the with_lse=False pallas_call of `_fwd`, reached from
-// `flash_attention_pallas` and, in the model, from the use_flash
-// prefill).
+// Replaces two TPU kernels of ray_tpu/ops/pallas/flash.py:
+//   * `_fwd_kernel` (the with_lse=False pallas_call of `_fwd`, the
+//     primal path: `flash_attention` without grad, the use_flash
+//     prefill), entry point flash_fwd_launch;
+//   * `_fwd_kernel_with_lse` (the with_lse=True pallas_call, the
+//     custom-VJP forward of training), entry point flash_fwd_lse_launch:
+//     the same kernel, also writing the f32 row logsumexp
+//     m + log(max(l, 1e-30)) to a [b, h, sq] buffer for the backward
+//     (ops/csrc/flash_bwd.cu). Masked scores are the finite -1e9, so the
+//     LSE is finite on every row, as the TPU kernel's is (flash.py:99-107).
 //
 // What it computes: blockwise online-softmax attention of one
 // (batch, head) over keys 0..sk-1, causal with TOP-LEFT alignment
@@ -96,7 +102,8 @@ __device__ __forceinline__ void load_tile(float* dst, int ld, const T* src,
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ o, int group, int sq, int sk, int64_t q_sb, int64_t q_sh,
+    T* __restrict__ o, float* __restrict__ lse, int group, int sq, int sk,
+    int64_t q_sb, int64_t q_sh,
     int64_t q_ss, int64_t k_sb, int64_t k_sh, int64_t k_ss, int64_t v_sb,
     int64_t v_sh, int64_t v_ss, int64_t o_sb, int64_t o_sh, int64_t o_ss,
     int causal, float scale) {
@@ -223,6 +230,12 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
 #pragma unroll
     for (int j = 0; j < kDJ; ++j) orow[tx + 16 * j] = from_f<T>(acc[i][j] / l);
   }
+  if (lse != nullptr) {
+    // Row logsumexp, [b, h, sq] f32 (the primal path passes nullptr).
+    float* lrow = lse + ((int64_t)bi * gridDim.y + hi) * sq + q0;
+    for (int r = tid; r < kBQ; r += kThreads)
+      if (q0 + r < sq) lrow[r] = m_row[r] + logf(fmaxf(l_row[r], 1e-30f));
+  }
 }
 
 constexpr int smem_bytes(int d) {
@@ -231,7 +244,8 @@ constexpr int smem_bytes(int d) {
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int b, int h,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int b, int h,
            int group, int sq, int sk, const int64_t* st, int causal,
            float scale, cudaStream_t stream) {
   auto kern = flash_fwd_kernel<T, D>;
@@ -242,7 +256,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int b, int h,
   dim3 grid((sq + kBQ - 1) / kBQ, h, b);
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), group, sq, sk, st[0],
+      static_cast<const T*>(v), static_cast<T*>(o), lse, group, sq, sk, st[0],
       st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10],
       st[11], causal, scale);
   return (int)cudaGetLastError();
@@ -250,17 +264,18 @@ int launch(const void* q, const void* k, const void* v, void* o, int b, int h,
 
 template <typename T>
 int launch_d(int d, const void* q, const void* k, const void* v, void* o,
-             int b, int h, int group, int sq, int sk, const int64_t* st,
+             float* lse, int b, int h, int group, int sq, int sk,
+             const int64_t* st,
              int causal, float scale, cudaStream_t s) {
   switch (d) {
-    case 16: return launch<T, 16>(q, k, v, o, b, h, group, sq, sk, st, causal, scale, s);
-    case 32: return launch<T, 32>(q, k, v, o, b, h, group, sq, sk, st, causal, scale, s);
-    case 48: return launch<T, 48>(q, k, v, o, b, h, group, sq, sk, st, causal, scale, s);
-    case 64: return launch<T, 64>(q, k, v, o, b, h, group, sq, sk, st, causal, scale, s);
-    case 80: return launch<T, 80>(q, k, v, o, b, h, group, sq, sk, st, causal, scale, s);
-    case 96: return launch<T, 96>(q, k, v, o, b, h, group, sq, sk, st, causal, scale, s);
-    case 112: return launch<T, 112>(q, k, v, o, b, h, group, sq, sk, st, causal, scale, s);
-    case 128: return launch<T, 128>(q, k, v, o, b, h, group, sq, sk, st, causal, scale, s);
+    case 16: return launch<T, 16>(q, k, v, o, lse, b, h, group, sq, sk, st, causal, scale, s);
+    case 32: return launch<T, 32>(q, k, v, o, lse, b, h, group, sq, sk, st, causal, scale, s);
+    case 48: return launch<T, 48>(q, k, v, o, lse, b, h, group, sq, sk, st, causal, scale, s);
+    case 64: return launch<T, 64>(q, k, v, o, lse, b, h, group, sq, sk, st, causal, scale, s);
+    case 80: return launch<T, 80>(q, k, v, o, lse, b, h, group, sq, sk, st, causal, scale, s);
+    case 96: return launch<T, 96>(q, k, v, o, lse, b, h, group, sq, sk, st, causal, scale, s);
+    case 112: return launch<T, 112>(q, k, v, o, lse, b, h, group, sq, sk, st, causal, scale, s);
+    case 128: return launch<T, 128>(q, k, v, o, lse, b, h, group, sq, sk, st, causal, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -269,22 +284,32 @@ int launch_d(int d, const void* q, const void* k, const void* v, void* o,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16; d in {16, 32, ..., 128}.
+// dtype: 0 = float32, 1 = bfloat16; d in {16, 32, ..., 128}; lse, when
+// not null, is a [b, h, sq] float32 buffer.
 // strides (elements): q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh,
 // v_ss, o_sb, o_sh, o_ss; the head dim is unit-stride.
 // Returns a cudaError_t (0 = launched).
+int flash_fwd_lse_launch(int dtype, int d, const void* q, const void* k,
+                         const void* v, void* o, float* lse, int b, int h,
+                         int group, int sq, int sk, const int64_t* strides,
+                         int causal, float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_d<float>(d, q, k, v, o, lse, b, h, group, sq, sk, strides,
+                           causal, scale, s);
+  if (dtype == 1)
+    return launch_d<__nv_bfloat16>(d, q, k, v, o, lse, b, h, group, sq, sk,
+                                   strides, causal, scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The primal path: no LSE.
 int flash_fwd_launch(int dtype, int d, const void* q, const void* k,
                      const void* v, void* o, int b, int h, int group, int sq,
                      int sk, const int64_t* strides, int causal, float scale,
                      void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_d<float>(d, q, k, v, o, b, h, group, sq, sk, strides,
-                           causal, scale, s);
-  if (dtype == 1)
-    return launch_d<__nv_bfloat16>(d, q, k, v, o, b, h, group, sq, sk,
-                                   strides, causal, scale, s);
-  return (int)cudaErrorInvalidValue;
+  return flash_fwd_lse_launch(dtype, d, q, k, v, o, nullptr, b, h, group, sq,
+                              sk, strides, causal, scale, stream);
 }
 
 int flash_fwd_smem_bytes(int d) { return smem_bytes(d); }
