@@ -14,12 +14,17 @@ Phases, each asserting what it checks (any failure exits non-zero):
      serving path's shapes, bf16 and f32, timed with CUDA events beside
      its bound (and, for flash, beside scaled_dot_product_attention);
      every CUDA-event time holds the stream with a spin kernel while the
-     host enqueues the call, so it is the call's device time;
+     host enqueues the call, so it is the call's device time; the flash
+     forward also at other layouts, GQA, dense, sq != sk and head dims
+     16-128 (48 and 80: the bf16 kernel's padded TMA boxes), in both
+     dtypes, and a profiler trace shows bf16 launching the Hopper kernel
+     (flash_fwd_wgmma_kernel) and f32 the CUDA-core one;
   3. slice parity: GPT-2-small f32 prefill + 4 decode steps on the card
      (kernels) against the CPU (plain versions);
   4. serving, engine defaults: GPT-2-small bf16 with use_flash,
      whole-prompt prefill, prefix cache, 8 threaded requests; the launch
-     counters show the path went through both kernels;
+     counters show the path went through both kernels, and the profiled
+     prefill's trace that its forward was the Hopper kernel;
   5. serving, handler defaults: LLMServer (chunked prefill, prefix
      cache, a shared system prompt) streaming frames to ``done``;
   6. preempt and resume: a pool too small for the batch gives the token
@@ -27,24 +32,27 @@ Phases, each asserting what it checks (any failure exits non-zero):
   7. the training kernels (forward with LSE, fused backward, split dq and
      dk/dv backward) against their plain versions on the card at the
      training shape (b 8, h 12, s 1023, d 64, causal, bf16 and f32), at
-     s 1024, head dims 32 and 128, GQA, and through ``FlashAttention``
-     with the split path forced; each timed beside its bound and its
-     library yardstick (SDPA's flash forward and backward): the kernel
-     alone from a profiler trace, the wrapper and SDPA with CUDA events;
-     with the kernels' register and spill report from nvcc;
+     s 1024, head dims 32, 48, 80 and 128, GQA, layout bhsd, dense, in
+     both dtypes, and through ``FlashAttention`` with the split path
+     forced; each timed beside its bound and its library yardstick
+     (SDPA's flash forward and backward): the kernel alone from a
+     profiler trace, the wrapper and SDPA with CUDA events; with the
+     kernels' register, spill and shared-memory report from nvcc;
   8. training slice parity: GPT-2-small f32, b 1, s 128, loss and every
      gradient from the card's kernels against the CPU plain versions;
   9. the training path: GPT-2-small bf16 with use_flash, remat
      "dots_flash" and the bench's AdamW (bf16 first moment), 6 steps on
      one [8, 1024] batch: the loss is finite and falls, and each step
      launches the LSE-route forward and the fused backward once per
-     layer and nothing else; median step ms, tokens/s and a profiled
-     step's device time by kernel group;
+     layer and nothing else (the profiled step's trace: the forward is
+     the Hopper kernel); median step ms, tokens/s and a profiled step's
+     device time by kernel group;
  10. the long-sequence training path: GPT-2-small width, 2 layers,
      max_seq 16384, one step on [1, 16384]: the backward takes the split
      kernels, once each per layer; then the three training kernels at
      that shape ([1, 16384, 12, 64] bf16) against their plain versions
-     (run two heads at a time), timed as in phase 7.
+     (run two heads at a time), timed as in phase 7, and the forward
+     at head dims 48 and 80 (two heads) at that length.
 
 Prints a ``{"serving": ...}`` line, a ``{"training": ...}`` line, the
 card line, a ``{"kernels": [...]}`` line and, last, ``{"ok": true,
@@ -254,6 +262,12 @@ def check_paged():
     return rows
 
 
+# The forward's two kernels (ops/csrc/flash_fwd.cu): bf16 takes the
+# Hopper kernel (TMA, wgmma), f32 the CUDA-core one.
+WGMMA_FWD = "flash_fwd_wgmma_kernel"
+SIMT_FWD = "flash_fwd_kernel"
+
+
 def flash_pairs(sq, sk, causal):
     if not causal:
         return sq * sk
@@ -292,23 +306,38 @@ def check_flash():
                              bound_ms=b_ms, bound_by=b_by,
                              shape=f"b1 h12 s{s} d64 causal bhsd"))
             log(f"[2] flash {rows[-1]}")
-    # Beyond the serving shape: layout bshd through strides, GQA, dense,
-    # sq != sk (top-left causal), the smallest and largest head dims.
-    for (b, sq, sk, h, hk, d, dtype) in (
-            (2, 200, 200, 8, 2, 32, torch.bfloat16),
-            (1, 100, 300, 4, 4, 128, torch.float32),
-            (3, 70, 70, 2, 1, 16, torch.float32)):
-        for causal in (True, False):
-            q = randn((b, sq, h, d), dtype, 40)
-            k = randn((b, sk, hk, d), dtype, 41)
-            v = randn((b, sk, hk, d), dtype, 42)
-            out = k_flash.flash_attention_fwd(q, k, v, causal=causal)
-            ref = k_flash.flash_attention_reference(q, k, v, causal=causal)
-            err = max_err(out, ref)
-            assert err <= TOL[("flash", dtype)], \
-                f"flash bshd sq{sq} sk{sk} d{d} causal={causal}: err {err}"
-            log(f"[2] flash bshd b{b} sq{sq} sk{sk} h{h}/{hk} d{d} {dtype} "
-                f"causal={causal} err {err:.3g}")
+    # Beyond the serving shape, in both dtypes (bf16 takes the Hopper
+    # kernel, f32 the CUDA-core one): layout bshd through strides, GQA,
+    # dense, sq != sk (top-left causal), the smallest and largest head
+    # dims, and d 48 and 80, where the bf16 kernel pads the head dim to
+    # 64 and 128 inside its TMA boxes.
+    for (b, sq, sk, h, hk, d) in ((2, 200, 200, 8, 2, 32),
+                                  (1, 100, 300, 4, 4, 128),
+                                  (3, 70, 70, 2, 1, 16),
+                                  (2, 333, 333, 8, 2, 48),
+                                  (1, 257, 257, 4, 4, 80)):
+        for dtype in (torch.bfloat16, torch.float32):
+            for causal in (True, False):
+                q = randn((b, sq, h, d), dtype, 40)
+                k = randn((b, sk, hk, d), dtype, 41)
+                v = randn((b, sk, hk, d), dtype, 42)
+                out = k_flash.flash_attention_fwd(q, k, v, causal=causal)
+                ref = k_flash.flash_attention_reference(q, k, v,
+                                                        causal=causal)
+                err = max_err(out, ref)
+                assert err <= TOL[("flash", dtype)], \
+                    f"flash bshd sq{sq} sk{sk} d{d} {dtype} " \
+                    f"causal={causal}: err {err}"
+                log(f"[2] flash bshd b{b} sq{sq} sk{sk} h{h}/{hk} d{d} "
+                    f"{dtype} causal={causal} err {err:.3g}")
+    # Which kernel each dtype launches, by name in a profiler trace.
+    for dtype, want in ((torch.bfloat16, WGMMA_FWD), (torch.float32,
+                                                       SIMT_FWD)):
+        q, k, v = (randn((1, 4, 256, 64), dtype, 43 + i) for i in range(3))
+        names = device_busy(lambda: k_flash.flash_attention_fwd(
+            q, k, v, layout="bhsd"), 1)["fwd_kernels"]
+        assert names and all(want in n for n in names), (dtype, names)
+        log(f"[2] flash {dtype} launches {names}")
     return rows
 
 
@@ -457,7 +486,7 @@ def serve_engine_defaults(params16):
 def _kernel_group(name: str) -> str:
     if "paged_attention_kernel" in name:
         return "paged_decode"
-    if "flash_fwd_kernel" in name:
+    if "flash_fwd_" in name:
         return "flash_fwd"
     if "flash_bwd_kv_kernel" in name:
         return "flash_bwd_kv"
@@ -474,8 +503,9 @@ def _kernel_group(name: str) -> str:
 def device_busy(fn, steps: int):
     """Device busy time per call of ``fn`` in ms, by kernel group, from a
     torch.profiler CUDA trace (kernels on one stream do not overlap, so
-    their durations add up to the busy time). None where the trace has
-    no device events."""
+    their durations add up to the busy time), and under "fwd_kernels"
+    the names of the flash forward kernels launched. None where the
+    trace has no device events."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -499,6 +529,7 @@ def device_busy(fn, steps: int):
         return None
     out = {g: us / 1e3 / steps for g, us in sorted(groups.items())}
     out["total"] = sum(out.values())
+    out["fwd_kernels"] = sorted({n for n in names if "flash_fwd_" in n})
     top = sorted(names.items(), key=lambda kv: -kv[1])[:8]
     REPORT.setdefault("top_kernels", []).append(
         [(n, us / 1e3 / steps) for n, us in top])
@@ -549,6 +580,10 @@ def step_breakdown(params16):
             times.append((time.perf_counter() - t0) * 1e3)
         wall = statistics.median(times[n // 5:])
         busy = device_busy(fn, 5)
+        assert busy is not None, f"no device events in the {name} trace"
+        if name == "prefill":   # bf16: the Hopper forward, nothing else
+            assert busy["fwd_kernels"] and all(
+                WGMMA_FWD in n for n in busy["fwd_kernels"]), busy
         out[name] = dict(wall_ms=wall, device_ms=busy,
                          device_idle_share=(None if busy is None else
                                             max(0.0, 1 - busy["total"]
@@ -736,7 +771,7 @@ def check_training_kernels():
         args = (q, k, v, o, lse, do)
         dev_ms = kernel_device_ms(
             lambda: k_flash.flash_attention_fwd_lse(q, k, v),
-            {"fwd_lse": "flash_fwd_kernel"})
+            {"fwd_lse": WGMMA_FWD if dtype == torch.bfloat16 else SIMT_FWD})
         dev_ms.update(kernel_device_ms(
             lambda: k_flash.flash_attention_bwd_fused(*args),
             {"bwd_fused": "flash_bwd_kv_kernel"}))
@@ -841,13 +876,18 @@ def check_training_shapes():
     layout bhsd, dense; then FlashAttention end to end with the split
     path forced (budget 0), against the plain versions."""
     out = []
-    for (b, s, h, hk, d, dtype, layout, causal) in (
-            (2, 1024, 12, 12, 64, torch.bfloat16, "bshd", True),
-            (2, 1024, 12, 12, 64, torch.float32, "bhsd", True),
-            (2, 300, 8, 8, 32, torch.float32, "bshd", True),
-            (1, 200, 4, 4, 128, torch.bfloat16, "bshd", False),
-            (2, 333, 8, 2, 64, torch.float32, "bshd", True),
-            (1, 129, 4, 1, 128, torch.float32, "bhsd", False)):
+    cases = [(b, s, h, hk, d, dtype, layout, causal)
+             for (b, s, h, hk, d, layout, causal) in (
+                 (2, 1024, 12, 12, 64, "bshd", True),
+                 (2, 1024, 12, 12, 64, "bhsd", True),
+                 (2, 300, 8, 8, 32, "bshd", True),
+                 (1, 200, 4, 4, 128, "bshd", False),
+                 (2, 333, 8, 2, 64, "bshd", True),
+                 (1, 129, 4, 1, 128, "bhsd", False),
+                 (2, 333, 8, 2, 48, "bshd", True),
+                 (1, 300, 4, 4, 80, "bhsd", True))
+             for dtype in (torch.bfloat16, torch.float32)]
+    for (b, s, h, hk, d, dtype, layout, causal) in cases:
         q, k, v, do = train_inputs(b, s, h, hk, d, dtype, 60, layout)
         kw = dict(causal=causal, layout=layout)
         o, lse = k_flash.flash_attention_fwd_lse(q, k, v, **kw)
@@ -894,38 +934,54 @@ def check_training_shapes():
 
 
 def ptxas_report() -> dict:
-    """Registers and spills of each kernel of the training sources at
-    head dim 64, from nvcc's -Xptxas -v report of the libraries this run
-    loaded (kept beside each library, so a reused build has it too)."""
+    """Registers and spills of the training sources' kernels, from
+    nvcc's -Xptxas -v report of the libraries this run loaded (kept
+    beside each library, so a reused build has it too): the bf16
+    forward (the Hopper kernel) at both padded head dims, with its
+    dynamic shared memory, and every other kernel at head dim 64. The
+    Hopper kernel's count is the launch's (384 threads, 168 a thread);
+    setmaxnreg then moves the producer's registers to the consumers."""
     import re
 
-    out = {}
+    fwd = k_flash._fwd_lib()
+    out, warns = {}, []
     for src in ("flash_fwd", "flash_bwd"):
         text = _build.build_report(src)
+        warns += [ln for ln in text.splitlines() if "warning" in ln.lower()]
         for m in re.finditer(
                 r"Compiling entry function '(\w+)'.*?\n(.*?)Used (\d+) "
                 r"registers", text, re.S):
             name, body, regs = m.group(1), m.group(2), int(m.group(3))
-            if "Li64E" not in name:
-                continue
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
                               r"spill loads", body)
+            row = dict(registers=regs,
+                       spill_stores=int(spill.group(1)) if spill else None,
+                       spill_loads=int(spill.group(2)) if spill else None)
+            wg = re.search(WGMMA_FWD + r"ILi(64|128)E", name)
+            if wg:
+                dp = int(wg.group(1))
+                row["dynamic_smem_bytes"] = fwd.flash_fwd_smem_bytes(1, dp)
+                out[f"{WGMMA_FWD}_dp{dp}_bf16"] = row
+                continue
+            if "Li64E" not in name:
+                continue
             kern = re.search(r"(?<=\d)(flash_[a-z_]+_kernel)I"
                              r"(13__nv_bfloat16|f)Li64E(Lb[01]E)?", name)
             label = (kern.group(1)
                      + ("_fused" if kern.group(3) == "Lb1E" else
                         "_split" if kern.group(3) == "Lb0E" else "")
                      + ("_bf16" if "bfloat16" in kern.group(2) else "_f32"))
-            out[label] = dict(registers=regs,
-                              spill_stores=int(spill.group(1)) if spill
-                              else None,
-                              spill_loads=int(spill.group(2)) if spill
-                              else None)
+            if label == f"{SIMT_FWD}_f32":
+                row["dynamic_smem_bytes"] = fwd.flash_fwd_smem_bytes(0, 64)
+            out[label] = row
     want = {f"{k}_{t}" for t in ("bf16", "f32")
-            for k in ("flash_fwd_kernel", "flash_bwd_kv_kernel_fused",
+            for k in ("flash_bwd_kv_kernel_fused",
                       "flash_bwd_kv_kernel_split", "flash_bwd_dq_kernel")}
+    want |= {f"{SIMT_FWD}_f32", f"{WGMMA_FWD}_dp64_bf16",
+             f"{WGMMA_FWD}_dp128_bf16"}
     assert set(out) == want, f"ptxas report: {sorted(out)} != {sorted(want)}"
-    log(f"[7] ptxas (d 64): {out}")
+    REPORT["ptxas_warnings"] = warns
+    log(f"[7] ptxas: {out}; warnings: {warns}")
     return out
 
 
@@ -1003,6 +1059,9 @@ def training():
         float(m["loss"])
 
     busy = device_busy(one_step, 1)
+    assert busy is not None, "no device events in the train step trace"
+    assert busy["fwd_kernels"] and all(
+        WGMMA_FWD in n for n in busy["fwd_kernels"]), busy
     out = dict(model="GPT-2-small bf16 use_flash remat dots_flash, AdamW "
                "bf16 mu", batch=b, seq=s, losses=losses, step_ms=wall,
                median_step_ms=step_ms,
@@ -1098,7 +1157,7 @@ def check_long_kernels():
 
     dev_ms = kernel_device_ms(
         lambda: k_flash.flash_attention_fwd_lse(q, k, v),
-        {"fwd_lse": "flash_fwd_kernel"}, iters=10)
+        {"fwd_lse": WGMMA_FWD}, iters=10)
     dev_ms.update(kernel_device_ms(
         lambda: k_flash.flash_attention_bwd_fused(*args),
         {"bwd_fused": "flash_bwd_kv_kernel"}, iters=10))
@@ -1134,6 +1193,23 @@ def check_long_kernels():
     log(f"[10] long-sequence kernels: {rows}")
     del q, k, v, do, o, lse
     torch.cuda.empty_cache()
+    # The padded head dims at this length: the forward with LSE, two
+    # heads, against its plain version.
+    rows["padded_head_dims"] = []
+    for dp in (48, 80):
+        q, k, v, _ = train_inputs(1, s, 2, 2, dp, dtype, 90)
+        o, lse = k_flash.flash_attention_fwd_lse(q, k, v)
+        o_ref, lse_ref = k_flash.flash_attention_fwd_lse_reference(q, k, v)
+        errs = (max_err(o, o_ref), max_err(lse, lse_ref))
+        assert errs[0] <= TOL[("flash", dtype)], f"long d{dp} out {errs}"
+        assert errs[1] <= TOL[("flash", torch.float32)], \
+            f"long d{dp} lse {errs}"
+        rows["padded_head_dims"].append(dict(
+            shape=f"b1 s{s} h2 d{dp} causal bshd", out_err=errs[0],
+            lse_err=errs[1]))
+        log(f"[10] {rows['padded_head_dims'][-1]}")
+        del q, k, v, o, lse, o_ref, lse_ref
+        torch.cuda.empty_cache()
     return rows
 
 

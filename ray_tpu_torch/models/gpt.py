@@ -58,9 +58,10 @@ class GPTConfig:
     dtype: Any = torch.bfloat16
     remat: bool = False
     use_flash: bool = False
-    # The CUDA flash kernels pick their own 64 x 64 tile; as in the JAX
-    # package this sets the padded lengths by which the backward picks
-    # the fused or the split kernels.
+    # The CUDA flash kernels pick their own tiles (128 x 128 for the
+    # bf16 forward, 64 x 64 for the others); as in the JAX package this
+    # sets the padded lengths by which the backward picks the fused or
+    # the split kernels.
     flash_block: int = 512
     # Rematerialization policy when remat=True (the JAX model's names):
     #   "dots_no_batch" — keep only the weight matmuls' outputs

@@ -19,48 +19,76 @@
 // before PV (flash.py's p.astype(v_blk.dtype)), the output is in the
 // input dtype. GQA: query head hi reads kv head hi / group.
 //
-// What bounds it on the H100: operations. At s = 1024, d = 64 a causal
-// head does ~2 * 2 * s^2 / 2 * d flops on 4 * s * d values, far above
-// the card's ~295 flop/byte ridge, so the tensor cores (wgmma) are the
-// limit a fast version would reach. This first version is the simple,
-// right one: f32 FMAs on the CUDA cores, which caps it well below the
-// bound (PERF.md has the measured gap). The design:
-//   * one CTA (256 threads) per (b, h, 64-row q tile), the q tile kept
-//     in shared memory as f32;
-//   * a loop over 64-key K/V tiles staged through shared memory with
-//     16-byte loads: the whole (b, h) K/V that the TPU kernel keeps
-//     resident in VMEM does not fit Hopper's 227 KB of shared memory;
-//   * each thread owns a 4 x 4 patch of the score tile and a 4 x (d/16)
-//     patch of the output accumulator in registers; rows are padded to
-//     d + 1 floats so the inner products are free of bank conflicts;
-//   * causal tiles are issued longest first (q tile index reversed).
-// It reads arbitrary batch/head/sequence strides with a unit-stride head
-// dim, so "bshd" and "bhsd" both run without a transpose.
-// wgmma, TMA and a producer/consumer pipeline are later work.
+// Two kernels, chosen by dtype:
+//
+// bfloat16: flash_fwd_wgmma_kernel<DP>, the Hopper design.
+//   What bounds it on the H100: at the training shape (b 8, s 1023,
+//   h 12, d 64, causal) the work is ~12.9 GFLOP on ~50 MB, ~13 us on
+//   the bf16 tensor cores and ~15 us of HBM; at the serving shape (b 1,
+//   s 1024) the grid is under one wave, so the longest causal q tile's
+//   walk over its key tiles sets the time. Both need the tensor cores
+//   and key tiles that arrive while the previous one is in the math.
+//   The design:
+//   * one CTA of three warpgroups per (128-row q tile, head, batch), the
+//     q tiles with the longest causal walk issued first (the q tile is
+//     the grid's slowest axis, reversed);
+//   * warpgroup 0 is the producer: one thread issues TMA loads of the
+//     Q tile (once) and of K/V tiles of 128 keys into a two-stage ring
+//     in shared memory, each stage guarded by a "full" mbarrier (TMA
+//     transaction bytes) and an "empty" one (one arrival per consumer);
+//     setmaxnreg moves its registers to the consumers;
+//   * warpgroups 1 and 2 each own 64 query rows: S = Q·Kᵀ by
+//     wgmma m64n128k16 with both operands in shared memory, the online
+//     softmax in registers (a row lives in a quad of threads: two
+//     shuffles for its max), p rounded to bf16 in registers and fed as
+//     the A operand of O += P·V (wgmma m64n{DP}k16, V MN-major through
+//     the transpose bit, no shuffle through shared memory), O rescaled
+//     in registers;
+//   * the tensor maps are 4-D (d, heads, seq, batch) with the tensors'
+//     own byte strides, so "bshd" and "bhsd" both load without a
+//     transpose; the box is 64 columns (128 bytes, 128-byte swizzle, the
+//     layout wgmma reads), so the head dim is padded in shared memory to
+//     DP = 64 (d <= 64) or 128 (d <= 128) and TMA fills the padding and
+//     rows past sq/sk with zeros; the masking still treats keys past sk
+//     as absent;
+//   * the exponentials are exp2 of scores pre-scaled by scale·log2(e);
+//     the LSE is converted back to the natural log: m·ln 2 + log(l).
+//   The launch geometry (DP, tiles, grid, each tensor map's dims, byte
+//   strides and box) comes from ops/flash.py `fwd_geometry`; the maps
+//   are encoded here with cuTensorMapEncodeTiled, obtained through
+//   cudaGetDriverEntryPoint so the library does not link libcuda.
+//
+// float32: flash_fwd_kernel<float, D>, the CUDA-core kernel (wgmma has
+//   no f32 inputs, and TF32 would not hold the f32 tolerances). One CTA
+//   (256 threads) per (b, h, 64-row q tile), K/V staged through shared
+//   memory in 64-key tiles as f32 with 16-byte loads, each thread a
+//   4 x 4 patch of the score tile and a 4 x (d/16) patch of the output
+//   accumulator in registers, rows padded to d + 1 floats against bank
+//   conflicts, causal tiles issued longest first. Bound by the CUDA
+//   cores' f32 FMA rate (67 TFLOP/s at best), far below the tensor
+//   cores.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+#include <stdio.h>
 
 namespace {
 
 constexpr float kNegInf = -1e9f;
+
+// ============================================================ float32
+
 constexpr int kBQ = 64;
 constexpr int kBK = 64;
 constexpr int kThreads = 256;   // 16 x 16 threads, 4 x 4 score patch each
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) {
   return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
-    float x) {
-  return __float2bfloat16(x);
 }
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -238,46 +266,539 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   }
 }
 
-constexpr int smem_bytes(int d) {
+constexpr int simt_smem_bytes(int d) {
   return (int)sizeof(float) *
          (kBQ * (d + 1) + kBK * (d + 1) + kBK * d + kBQ * (kBK + 1) + 3 * kBQ);
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, float* lse,
-           int b, int h,
-           int group, int sq, int sk, const int64_t* st, int causal,
-           float scale, cudaStream_t stream) {
-  auto kern = flash_fwd_kernel<T, D>;
-  constexpr int smem = smem_bytes(D);
+
+// ============================================================ bfloat16
+
+constexpr int kWgBQ = 128;        // query rows of a CTA (2 x 64)
+constexpr int kWgBK = 128;        // keys of a K/V tile
+constexpr int kWgStages = 2;      // K/V ring depth
+constexpr int kWgThreads = 384;   // producer + two consumer warpgroups
+constexpr int kPanelCols = 64;    // TMA box inner dim: 128 bytes of bf16
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+template <int DP>
+struct WgLayout {
+  static constexpr int kPanels = DP / kPanelCols;
+  static constexpr int kPanelQ = kWgBQ * 128;     // bytes of a Q panel
+  static constexpr int kPanelKV = kWgBK * 128;    // bytes of a K/V panel
+  static constexpr int kQBytes = kPanels * kPanelQ;
+  static constexpr int kKVBytes = kPanels * kPanelKV;   // K or V, 1 stage
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + kQBytes;
+  static constexpr int kV = kK + kWgStages * kKVBytes;
+  static constexpr int kBars = kV + kWgStages * kKVBytes;
+  // full[s], empty[s], then the Q barrier; 1024 bytes of slack to align
+  // the tiles to the 128-byte swizzle's 1024-byte period.
+  static constexpr int kSmem = kBars + 8 * (2 * kWgStages + 1) + 1024;
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+// Wait until the phase of `bar` with this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One box of a 4-D tensor map into shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// A wgmma shared-memory matrix descriptor, 128-byte swizzle. Offsets in
+// bytes: `lbo` is unused for K-major operands and is the stride between
+// 64-column panels for MN-major ones; `sbo` is the stride between groups
+// of 8 rows (8 x 128 bytes).
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+// Keep the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma boundary.
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void pin(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// D[64 x 128] (+)= A[64 x 16] * B[16 x 128], A and B from shared memory,
+// both K-major (128-byte swizzle); scale_d 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D[64 x N] += A[64 x 16] * B[16 x N], A from registers (four bf16x2 a
+// thread, in the accumulator's layout), B from shared memory MN-major
+// (128-byte swizzle, imm-trans-b 1).
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t* a,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// Scores of one K/V tile in the log2 domain, masked where a key is past
+// sk or (causal) after the query row; the running row maxima of the
+// thread's two rows. Accumulator element i of a thread sits at row
+// r0 + 8 * ((i >> 1) & 1) and column 8 * (i >> 2) + c2 + (i & 1).
+template <bool kMask>
+__device__ __forceinline__ void scale_mask(float (&s)[64], float scale_log2,
+                                           int k0, int c2, int r0, int sk,
+                                           int causal, float& mx0,
+                                           float& mx1) {
+  constexpr float kMaskLog2 = kNegInf * kLog2e;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    float x = s[i] * scale_log2;
+    if (kMask) {
+      const int col = k0 + 8 * (i >> 2) + c2 + (i & 1);
+      const int row = r0 + 8 * ((i >> 1) & 1);
+      if (col >= sk || (causal && col > row)) x = kMaskLog2;
+    }
+    s[i] = x;
+    if ((i >> 1) & 1)
+      mx1 = fmaxf(mx1, x);
+    else
+      mx0 = fmaxf(mx0, x);
+  }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(kWgThreads, 1) flash_fwd_wgmma_kernel(
+    __grid_constant__ const CUtensorMap tm_q,
+    __grid_constant__ const CUtensorMap tm_k,
+    __grid_constant__ const CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
+    float* __restrict__ lse, int group, int sq, int sk, int d, int64_t o_sb,
+    int64_t o_sh, int64_t o_ss, int causal, float scale_log2) {
+  using L = WgLayout<DP>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = base + L::kQ, sK = base + L::kK, sV = base + L::kV;
+  const uint32_t bar_full = base + L::kBars;
+  const uint32_t bar_empty = bar_full + 8 * kWgStages;
+  const uint32_t bar_q = bar_empty + 8 * kWgStages;
+
+  const int hi = blockIdx.x, bi = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kWgBQ;   // longest first
+  const int nk = (sk + kWgBK - 1) / kWgBK;
+  const int upper =
+      causal ? min(nk, (q0 + kWgBQ + kWgBK - 1) / kWgBK) : nk;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kWgStages; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, 2);   // one arrival per consumer
+    }
+    mbar_init(bar_q, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // Producer: one thread keeps the ring full.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;");
+    if (threadIdx.x == 0) {
+      const int kvh = hi / group;
+      mbar_expect_tx(bar_q, L::kQBytes);
+      for (int p = 0; p < L::kPanels; ++p)
+        tma_load(sQ + p * L::kPanelQ, &tm_q, bar_q, p * kPanelCols, hi, q0,
+                 bi);
+      for (int kt = 0; kt < upper; ++kt) {
+        const int s = kt % kWgStages;
+        mbar_wait(bar_empty + 8 * s, ((kt / kWgStages) & 1) ^ 1);
+        mbar_expect_tx(bar_full + 8 * s, 2 * L::kKVBytes);
+        for (int p = 0; p < L::kPanels; ++p) {
+          const uint32_t off = s * L::kKVBytes + p * L::kPanelKV;
+          tma_load(sK + off, &tm_k, bar_full + 8 * s, p * kPanelCols, kvh,
+                   kt * kWgBK, bi);
+          tma_load(sV + off, &tm_v, bar_full + 8 * s, p * kPanelCols, kvh,
+                   kt * kWgBK, bi);
+        }
+      }
+    }
+  } else {
+    // Consumers: warpgroup 1 takes rows 0..63 of the tile, 2 rows 64..127.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;");
+    const int row_off = (wg - 1) * 64;
+    const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+    const int r0 = q0 + row_off + 16 * warp + lane / 4;   // and r0 + 8
+    const int c2 = 2 * (lane % 4);
+    float acc[DP / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+
+    mbar_wait(bar_q, 0);
+    for (int kt = 0; kt < upper; ++kt) {
+      const int s = kt % kWgStages;
+      const int k0 = kt * kWgBK;
+      mbar_wait(bar_full + 8 * s, (kt / kWgStages) & 1);
+
+      // S = Q Kᵀ: K-major A (this warpgroup's 64 rows of Q) and B (the
+      // 128 keys), 16 columns of the head dim a step.
+      float sc[64];
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        const uint32_t col = (kk % 4) * 32;
+        const uint64_t da = smem_desc(
+            sQ + (kk / 4) * L::kPanelQ + row_off * 128 + col, 16, 1024);
+        const uint64_t db = smem_desc(
+            sK + s * L::kKVBytes + (kk / 4) * L::kPanelKV + col, 16, 1024);
+        wgmma_ss_n128(sc, da, db, kk > 0);
+      }
+      wg_commit();
+      wg_wait_all();
+      pin(sc);
+
+      float mx0 = -INFINITY, mx1 = -INFINITY;
+      const bool edge = k0 + kWgBK > sk ||
+                        (causal && k0 + kWgBK - 1 > q0 + row_off);
+      if (edge)
+        scale_mask<true>(sc, scale_log2, k0, c2, r0, sk, causal, mx0, mx1);
+      else
+        scale_mask<false>(sc, scale_log2, k0, c2, r0, sk, causal, mx0, mx1);
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+      const float corr0 = exp2f(m0 - mn0), corr1 = exp2f(m1 - mn1);
+      m0 = mn0;
+      m1 = mn1;
+
+      // p = exp(s - m) in f32 for the row sums, rounded to bf16 for PV;
+      // the pairs (i, i + 1) pack into the A operand's registers.
+      uint32_t pk[32];
+      float ls0 = 0.f, ls1 = 0.f;
+#pragma unroll
+      for (int i = 0; i < 64; i += 2) {
+        const bool hi_row = (i >> 1) & 1;
+        const float m = hi_row ? mn1 : mn0;
+        const float pa = exp2f(sc[i] - m), pb = exp2f(sc[i + 1] - m);
+        if (hi_row)
+          ls1 += pa + pb;
+        else
+          ls0 += pa + pb;
+        const __nv_bfloat162 h2 = __floats2bfloat162_rn(pa, pb);
+        pk[i / 2] = *reinterpret_cast<const uint32_t*>(&h2);
+      }
+      l0 = l0 * corr0 + ls0;   // per-thread partial sums, reduced at the end
+      l1 = l1 * corr1 + ls1;
+#pragma unroll
+      for (int i = 0; i < DP / 2; ++i) acc[i] *= ((i >> 1) & 1) ? corr1 : corr0;
+
+      // O += P V: 16 keys a step; V [keys, DP] is MN-major for this
+      // product (rows of 128 bytes, panels of 64 columns kPanelKV apart).
+      pin(acc);
+      pin(pk);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < kWgBK / 16; ++kk) {
+        const uint64_t db = smem_desc(sV + s * L::kKVBytes + kk * 16 * 128,
+                                      L::kPanelKV, 1024);
+        wgmma_rs(acc, pk + 4 * kk, db);
+      }
+      wg_commit();
+      wg_wait_all();
+      pin(acc);
+      if (t == 0) mbar_arrive(bar_empty + 8 * s);   // this stage is read
+    }
+
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    const float lc0 = fmaxf(l0, 1e-30f), lc1 = fmaxf(l1, 1e-30f);
+    __nv_bfloat16* ob = o + bi * o_sb + hi * o_sh;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int col = 8 * j + c2;
+      if (col >= d) continue;
+      if (r0 < sq)
+        *reinterpret_cast<__nv_bfloat162*>(ob + r0 * o_ss + col) =
+            __floats2bfloat162_rn(acc[4 * j] / lc0, acc[4 * j + 1] / lc0);
+      if (r0 + 8 < sq)
+        *reinterpret_cast<__nv_bfloat162*>(ob + (r0 + 8) * o_ss + col) =
+            __floats2bfloat162_rn(acc[4 * j + 2] / lc1, acc[4 * j + 3] / lc1);
+    }
+    if (lse != nullptr && lane % 4 == 0) {
+      // Row logsumexp, [b, h, sq] f32, in the natural log.
+      float* lrow = lse + ((int64_t)bi * gridDim.x + hi) * sq;
+      if (r0 < sq) lrow[r0] = m0 * kLn2 + logf(lc0);
+      if (r0 + 8 < sq) lrow[r0 + 8] = m1 * kLn2 + logf(lc1);
+    }
+  }
+}
+
+// ------------------------------------------------------------- launch
+
+// The geometry array from ops/flash.py `fwd_geometry` (int64):
+//   [0:6)   DP, block_q, block_k, grid x, y, z
+//   [6:18)  element strides (batch, head, seq) of q, k, v, out
+//   [18:51) for q, k, v: dims (d, heads, seq, batch), byte strides
+//           (heads, seq, batch), box (d, heads, seq, batch)
+constexpr int kGeomLen = 51;
+constexpr int kMapAt = 18, kMapLen = 11;
+
+// Errors of cuTensorMapEncodeTiled come back as kEncodeError + CUresult.
+constexpr int kEncodeError = 1 << 20;
+constexpr int kNoEntryPoint = 2 << 20;
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+int encode_map(CUtensorMap* map, const void* ptr, const int64_t* g) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return kNoEntryPoint;
+  cuuint64_t dims[4], strides[3];
+  cuuint32_t box[4], unit[4] = {1, 1, 1, 1};
+  for (int i = 0; i < 4; ++i) dims[i] = (cuuint64_t)g[i];
+  for (int i = 0; i < 3; ++i) strides[i] = (cuuint64_t)g[4 + i];
+  for (int i = 0; i < 4; ++i) box[i] = (cuuint32_t)g[7 + i];
+  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                  const_cast<void*>(ptr), dims, strides, box, unit,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kEncodeError + (int)r;
+}
+
+template <int DP>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o,
+                 float* lse, int group, int sq, int sk, int d,
+                 const int64_t* g, int causal, float scale,
+                 cudaStream_t stream) {
+  CUtensorMap maps[3];
+  const void* ptrs[3] = {q, k, v};
+  for (int i = 0; i < 3; ++i) {
+    const int err = encode_map(&maps[i], ptrs[i], g + kMapAt + i * kMapLen);
+    if (err) return err;
+  }
+  auto kern = flash_fwd_wgmma_kernel<DP>;
+  constexpr int smem = WgLayout<DP>::kSmem;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((sq + kBQ - 1) / kBQ, h, b);
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, group, sq, sk, st[0],
-      st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10],
-      st[11], causal, scale);
+  dim3 grid((unsigned)g[3], (unsigned)g[4], (unsigned)g[5]);
+  kern<<<grid, kWgThreads, smem, stream>>>(
+      maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o), lse, group,
+      sq, sk, d, g[15], g[16], g[17], causal, scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_d(int d, const void* q, const void* k, const void* v, void* o,
-             float* lse, int b, int h, int group, int sq, int sk,
-             const int64_t* st,
-             int causal, float scale, cudaStream_t s) {
+template <int D>
+int launch_simt(const void* q, const void* k, const void* v, void* o,
+                float* lse, int group, int sq, int sk, const int64_t* g,
+                int causal, float scale, cudaStream_t stream) {
+  auto kern = flash_fwd_kernel<float, D>;
+  constexpr int smem = simt_smem_bytes(D);
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int64_t* st = g + 6;
+  dim3 grid((unsigned)g[3], (unsigned)g[4], (unsigned)g[5]);
+  kern<<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), lse, group, sq,
+      sk, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
+      st[9], st[10], st[11], causal, scale);
+  return (int)cudaGetLastError();
+}
+
+int launch_f32(int d, const void* q, const void* k, const void* v, void* o,
+               float* lse, int group, int sq, int sk, const int64_t* g,
+               int causal, float scale, cudaStream_t s) {
+  if (g[0] != d || g[1] != kBQ || g[2] != kBK)
+    return (int)cudaErrorInvalidValue;
   switch (d) {
-    case 16: return launch<T, 16>(q, k, v, o, lse, b, h, group, sq, sk, st, causal, scale, s);
-    case 32: return launch<T, 32>(q, k, v, o, lse, b, h, group, sq, sk, st, causal, scale, s);
-    case 48: return launch<T, 48>(q, k, v, o, lse, b, h, group, sq, sk, st, causal, scale, s);
-    case 64: return launch<T, 64>(q, k, v, o, lse, b, h, group, sq, sk, st, causal, scale, s);
-    case 80: return launch<T, 80>(q, k, v, o, lse, b, h, group, sq, sk, st, causal, scale, s);
-    case 96: return launch<T, 96>(q, k, v, o, lse, b, h, group, sq, sk, st, causal, scale, s);
-    case 112: return launch<T, 112>(q, k, v, o, lse, b, h, group, sq, sk, st, causal, scale, s);
-    case 128: return launch<T, 128>(q, k, v, o, lse, b, h, group, sq, sk, st, causal, scale, s);
+    case 16: return launch_simt<16>(q, k, v, o, lse, group, sq, sk, g, causal, scale, s);
+    case 32: return launch_simt<32>(q, k, v, o, lse, group, sq, sk, g, causal, scale, s);
+    case 48: return launch_simt<48>(q, k, v, o, lse, group, sq, sk, g, causal, scale, s);
+    case 64: return launch_simt<64>(q, k, v, o, lse, group, sq, sk, g, causal, scale, s);
+    case 80: return launch_simt<80>(q, k, v, o, lse, group, sq, sk, g, causal, scale, s);
+    case 96: return launch_simt<96>(q, k, v, o, lse, group, sq, sk, g, causal, scale, s);
+    case 112: return launch_simt<112>(q, k, v, o, lse, group, sq, sk, g, causal, scale, s);
+    case 128: return launch_simt<128>(q, k, v, o, lse, group, sq, sk, g, causal, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+int launch_bf16(int d, const void* q, const void* k, const void* v, void* o,
+                float* lse, int group, int sq, int sk, const int64_t* g,
+                int causal, float scale, cudaStream_t s) {
+  if (d % 16 || d < 16 || d > 128 || g[0] != (d <= 64 ? 64 : 128) ||
+      g[1] != kWgBQ || g[2] != kWgBK)
+    return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < 3; ++i) {
+    const int64_t* box = g + kMapAt + i * kMapLen + 7;
+    const int rows = i == 0 ? kWgBQ : kWgBK;
+    if (box[0] != kPanelCols || box[1] != 1 || box[2] != rows || box[3] != 1)
+      return (int)cudaErrorInvalidValue;
+  }
+  if (g[0] == 64)
+    return launch_wgmma<64>(q, k, v, o, lse, group, sq, sk, d, g, causal,
+                            scale, s);
+  return launch_wgmma<128>(q, k, v, o, lse, group, sq, sk, d, g, causal,
+                           scale, s);
 }
 
 }  // namespace
@@ -285,36 +806,50 @@ int launch_d(int d, const void* q, const void* k, const void* v, void* o,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16; d in {16, 32, ..., 128}; lse, when
-// not null, is a [b, h, sq] float32 buffer.
-// strides (elements): q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh,
-// v_ss, o_sb, o_sh, o_ss; the head dim is unit-stride.
-// Returns a cudaError_t (0 = launched).
+// not null, is a [b, h, sq] float32 buffer; geom is the int64 array of
+// ops/flash.py `fwd_geometry` (kGeomLen values; the grid covers b and h).
+// Returns 0 when launched, else a cudaError_t, or kEncodeError plus the
+// CUresult of a tensor map that failed to encode.
 int flash_fwd_lse_launch(int dtype, int d, const void* q, const void* k,
-                         const void* v, void* o, float* lse, int b, int h,
-                         int group, int sq, int sk, const int64_t* strides,
-                         int causal, float scale, void* stream) {
+                         const void* v, void* o, float* lse, int group,
+                         int sq, int sk, const int64_t* geom, int causal,
+                         float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_d<float>(d, q, k, v, o, lse, b, h, group, sq, sk, strides,
-                           causal, scale, s);
+    return launch_f32(d, q, k, v, o, lse, group, sq, sk, geom, causal, scale,
+                      s);
   if (dtype == 1)
-    return launch_d<__nv_bfloat16>(d, q, k, v, o, lse, b, h, group, sq, sk,
-                                   strides, causal, scale, s);
+    return launch_bf16(d, q, k, v, o, lse, group, sq, sk, geom, causal,
+                       scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
 // The primal path: no LSE.
 int flash_fwd_launch(int dtype, int d, const void* q, const void* k,
-                     const void* v, void* o, int b, int h, int group, int sq,
-                     int sk, const int64_t* strides, int causal, float scale,
+                     const void* v, void* o, int group, int sq, int sk,
+                     const int64_t* geom, int causal, float scale,
                      void* stream) {
-  return flash_fwd_lse_launch(dtype, d, q, k, v, o, nullptr, b, h, group, sq,
-                              sk, strides, causal, scale, stream);
+  return flash_fwd_lse_launch(dtype, d, q, k, v, o, nullptr, group, sq, sk,
+                              geom, causal, scale, stream);
 }
 
-int flash_fwd_smem_bytes(int d) { return smem_bytes(d); }
+int flash_fwd_geom_len() { return kGeomLen; }
+
+// Dynamic shared memory of a launch: the f32 kernel's at head dim d, or
+// the bf16 kernel's at padded head dim d (64 or 128).
+int flash_fwd_smem_bytes(int dtype, int d) {
+  if (dtype == 1) return d <= 64 ? WgLayout<64>::kSmem : WgLayout<128>::kSmem;
+  return simt_smem_bytes(d);
+}
 
 const char* flash_fwd_error_string(int err) {
+  static char buf[96];
+  if (err >= kNoEntryPoint) return "cuTensorMapEncodeTiled not found";
+  if (err >= kEncodeError) {
+    snprintf(buf, sizeof buf, "cuTensorMapEncodeTiled failed, CUresult %d",
+             err - kEncodeError);
+    return buf;
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

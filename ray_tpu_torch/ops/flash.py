@@ -8,7 +8,9 @@ Four CUDA entry points, each a wrapper with its own launch counter:
     ``launches``;
   * ``flash_attention_fwd_lse`` — the forward that also returns the f32
     row logsumexp (``_fwd_kernel_with_lse``), the same source's LSE
-    route; counter ``lse_launches``;
+    route; counter ``lse_launches``. Both forward routes take the
+    Hopper kernel (TMA and wgmma) for bf16 and the CUDA-core kernel for
+    f32; ``fwd_geometry`` computes either launch's geometry;
   * ``flash_attention_bwd_fused`` — dq, dk and dv in one kernel
     (``_bwd_fused_kernel``), ops/csrc/flash_bwd.cu; counter
     ``bwd_fused_launches``;
@@ -40,6 +42,7 @@ its group.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -80,14 +83,22 @@ def _fwd_lib():
     lib = _build.library("flash_fwd")
     if lib.flash_fwd_launch.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.flash_fwd_launch.argtypes = [i, i, p, p, p, p, i, i, i, i, i, p,
-                                         i, f, p]
-        lib.flash_fwd_lse_launch.argtypes = [i, i, p, p, p, p, p, i, i, i, i,
-                                             i, p, i, f, p]
+        lib.flash_fwd_launch.argtypes = [i, i, p, p, p, p, i, i, i, p, i, f,
+                                         p]
+        lib.flash_fwd_lse_launch.argtypes = [i, i, p, p, p, p, p, i, i, i, p,
+                                             i, f, p]
         for fn in (lib.flash_fwd_launch, lib.flash_fwd_lse_launch):
             fn.restype = i
+        lib.flash_fwd_smem_bytes.argtypes = [i, i]
+        lib.flash_fwd_smem_bytes.restype = i
+        lib.flash_fwd_geom_len.argtypes = []
+        lib.flash_fwd_geom_len.restype = i
         lib.flash_fwd_error_string.argtypes = [i]
         lib.flash_fwd_error_string.restype = ctypes.c_char_p
+        if lib.flash_fwd_geom_len() != GEOM_LEN:
+            raise RuntimeError("ray_tpu_torch: flash_fwd.cu reads "
+                               f"{lib.flash_fwd_geom_len()} geometry values, "
+                               f"ops/flash.py writes {GEOM_LEN}")
     return lib
 
 
@@ -122,6 +133,78 @@ def _check_gqa(q, k, h_ax):
 
 
 # ------------------------------------------------------------- forward
+
+# The bf16 kernel's tiles: 128 query rows a CTA (two consumer
+# warpgroups of 64), K/V tiles of 128 keys, the head dim padded to a
+# whole number of 64-column TMA boxes (128 bytes, the 128-byte swizzle
+# that wgmma reads). The f32 kernel's tiles are 64 x 64.
+_WG_BLOCK_Q = 128
+_WG_BLOCK_K = 128
+_BOX_COLS = 64
+_F32_BLOCK = 64
+# Values in the int64 geometry array the C entry points read.
+GEOM_LEN = 51
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorMapGeometry:
+    """One TMA tensor map over a [b, s, h, d] or [b, h, s, d] tensor,
+    seen as the 4-D view (d, heads, seq, batch), innermost first."""
+    dims: tuple[int, int, int, int]
+    strides: tuple[int, int, int]      # bytes: heads, seq, batch
+    box: tuple[int, int, int, int]     # elements: d, heads, seq, batch
+
+
+@dataclasses.dataclass(frozen=True)
+class FwdGeometry:
+    """The launch geometry of the forward kernel for one call."""
+    head_dim_padded: int
+    block_q: int
+    block_k: int
+    grid: tuple[int, int, int]
+    strides: tuple[int, ...]           # elements: (b, h, s) of q, k, v, out
+    maps: tuple[TensorMapGeometry, ...]   # q, k, v (bf16), () for f32
+
+    def to_array(self) -> list:
+        """The int64 values the C entry points read (flash_fwd.cu)."""
+        vals = [self.head_dim_padded, self.block_q, self.block_k,
+                *self.grid, *self.strides]
+        for m in self.maps:
+            vals += [*m.dims, *m.strides, *m.box]
+        return vals + [0] * (GEOM_LEN - len(vals))
+
+
+def fwd_geometry(q, k, v, out, s_ax: int, h_ax: int) -> FwdGeometry:
+    """Launch geometry of the forward kernel for these tensors (only
+    their dtype, shapes and strides are read: no device is touched).
+
+    bf16: the Hopper kernel. Grid (h, b, q tiles): the q tile is the
+    slowest axis, walked from the last tile so the longest causal walks
+    start first. Q, K and V each get a tensor map over (d, heads, seq,
+    batch) with their own byte strides, so both layouts load without a
+    transpose; the box is 64 columns by one tile of rows, and a head dim
+    below 64 or between 64 and 128 is padded (by TMA's zero fill) to 64
+    or 128. f32: the CUDA-core kernel, 64 x 64 tiles, grid (q tiles, h,
+    b), no tensor maps."""
+    b, sq, h, d = q.shape[0], q.shape[s_ax], q.shape[h_ax], q.shape[-1]
+    strides = tuple(st for t in (q, k, v, out)
+                    for st in (t.stride(0), t.stride(h_ax), t.stride(s_ax)))
+    if q.dtype == torch.float32:
+        return FwdGeometry(d, _F32_BLOCK, _F32_BLOCK,
+                           (-(-sq // _F32_BLOCK), h, b), strides, ())
+    isz = q.element_size()
+    maps = tuple(
+        TensorMapGeometry(
+            dims=(d, t.shape[h_ax], t.shape[s_ax], t.shape[0]),
+            strides=(t.stride(h_ax) * isz, t.stride(s_ax) * isz,
+                     t.stride(0) * isz),
+            box=(_BOX_COLS, 1, rows, 1))
+        for t, rows in ((q, _WG_BLOCK_Q), (k, _WG_BLOCK_K),
+                        (v, _WG_BLOCK_K)))
+    dp = -(-d // _BOX_COLS) * _BOX_COLS
+    return FwdGeometry(dp, _WG_BLOCK_Q, _WG_BLOCK_K,
+                       (h, b, -(-sq // _WG_BLOCK_Q)), strides, maps)
+
 
 def flash_attention_fwd(q, k, v, *, causal: bool = True,
                         layout: str = "bshd"):
@@ -184,12 +267,10 @@ def _launch_fwd(q, k, v, causal, s_ax, h_ax, with_lse):
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
            if with_lse else None)
-    strides = []
-    for t in (q, k, v, out):
-        strides += [t.stride(0), t.stride(h_ax), t.stride(s_ax)]
-    st = (ctypes.c_int64 * 12)(*strides)
+    geom = fwd_geometry(q, k, v, out, s_ax, h_ax)
+    arr = (ctypes.c_int64 * GEOM_LEN)(*geom.to_array())
     lib = _fwd_lib()
-    common = (b, h, h // k.shape[h_ax], sq, sk, st, int(causal),
+    common = (h // k.shape[h_ax], sq, sk, arr, int(causal),
               float(d ** -0.5))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream

@@ -27,10 +27,12 @@ def flash_attention(q, k, v, *, causal: bool = True,
     [batch, heads, seq, head_dim] (layout="bhsd"); output matches the
     input layout. Softmax statistics are f32; inputs may be bf16.
 
-    ``block_size`` does not choose the CUDA kernels' tile, which is fixed
-    at 64 x 64 by the shared-memory budget; as in the JAX package it
-    sets the padded lengths by which the backward chooses the fused or
-    the split kernels (ops/flash.py ``_fused_bwd_fits``).
+    ``block_size`` does not choose the CUDA kernels' tiles, which each
+    kernel fixes for Hopper (the bf16 forward 128 x 128, the f32
+    forward and the backward kernels 64 x 64; ops/flash.py
+    ``fwd_geometry``); as in the JAX package it sets the padded lengths
+    by which the backward chooses the fused or the split kernels
+    (ops/flash.py ``_fused_bwd_fits``).
     """
     _split(layout)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
