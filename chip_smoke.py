@@ -16,9 +16,10 @@ Phases, each asserting what it checks (any failure exits non-zero):
      every CUDA-event time holds the stream with a spin kernel while the
      host enqueues the call, so it is the call's device time; the flash
      forward also at other layouts, GQA, dense, sq != sk and head dims
-     16-128 (48 and 80: the bf16 kernel's padded TMA boxes), in both
-     dtypes, and a profiler trace shows bf16 launching the Hopper kernel
-     (flash_fwd_wgmma_kernel) and f32 the CUDA-core one;
+     16-128 (48 and 80: the bf16 kernel's padded TMA boxes), causal
+     sq > sk, in both dtypes, and a profiler trace shows bf16 launching
+     the Hopper kernel (flash_fwd_wgmma_kernel) and f32 the CUDA-core
+     one;
   3. slice parity: GPT-2-small f32 prefill + 4 decode steps on the card
      (kernels) against the CPU (plain versions);
   4. serving, engine defaults: GPT-2-small bf16 with use_flash,
@@ -32,32 +33,38 @@ Phases, each asserting what it checks (any failure exits non-zero):
   7. the training kernels (forward with LSE, fused backward, split dq and
      dk/dv backward) against their plain versions on the card at the
      training shape (b 8, h 12, s 1023, d 64, causal, bf16 and f32), at
-     s 1024, head dims 32, 48, 80 and 128, GQA, layout bhsd, dense, in
-     both dtypes, and through ``FlashAttention`` with the split path
-     forced; each timed beside its bound and its library yardstick
-     (SDPA's flash forward and backward): the kernel alone from a
-     profiler trace, the wrapper and SDPA with CUDA events; with the
-     kernels' register, spill and shared-memory report from nvcc;
+     s 1024, head dims 32, 48, 80 and 128, GQA, layout bhsd, dense,
+     sq != sk (causal both ways, and dense), in both dtypes, and through
+     ``FlashAttention`` with the split path forced; the fused route's
+     dq, dk and dv bitwise equal over two calls (bf16 and f32, the
+     training shape and GQA); each timed beside its bound and its
+     library yardstick (SDPA's flash forward and backward): the kernels
+     alone from a profiler trace (the fused route as the sum of its two
+     kernels, the Hopper kernel or the f32 CUDA-core one and the ordered
+     dq sum), the wrapper and SDPA with CUDA events; with the kernels'
+     register, spill and shared-memory report from nvcc;
   8. training slice parity: GPT-2-small f32, b 1, s 128, loss and every
      gradient from the card's kernels against the CPU plain versions;
   9. the training path: GPT-2-small bf16 with use_flash, remat
      "dots_flash" and the bench's AdamW (bf16 first moment), 6 steps on
      one [8, 1024] batch: the loss is finite and falls, and each step
      launches the LSE-route forward and the fused backward once per
-     layer and nothing else (the profiled step's trace: the forward is
-     the Hopper kernel); median step ms, tokens/s and a profiled step's
-     device time by kernel group;
+     layer and nothing else (the profiled step's trace: the Hopper
+     forward and the Hopper backward with its dq sum, once per layer,
+     and no CUDA-core backward); median step ms, tokens/s and a
+     profiled step's device time by kernel group;
  10. the long-sequence training path: GPT-2-small width, 2 layers,
      max_seq 16384, one step on [1, 16384]: the backward takes the split
      kernels, once each per layer; then the three training kernels at
      that shape ([1, 16384, 12, 64] bf16) against their plain versions
-     (run two heads at a time), timed as in phase 7, and the forward
-     at head dims 48 and 80 (two heads) at that length.
+     (run two heads at a time), timed as in phase 7, with the peak
+     device memory of the checks, and the forward at head dims 48 and
+     80 (two heads) at that length.
 
 Prints a ``{"serving": ...}`` line, a ``{"training": ...}`` line, the
 card line, a ``{"kernels": [...]}`` line and, last, ``{"ok": true,
-"device": {...}}``. Everything measured goes to
-smoke_out/chip_smoke.json as well.
+"device": {...}}``. Everything measured, the whole run's wall time
+included, goes to smoke_out/chip_smoke.json as well.
 """
 
 from __future__ import annotations
@@ -266,6 +273,14 @@ def check_paged():
 # Hopper kernel (TMA, wgmma), f32 the CUDA-core one.
 WGMMA_FWD = "flash_fwd_wgmma_kernel"
 SIMT_FWD = "flash_fwd_kernel"
+# The backward's kernels (ops/csrc/flash_bwd.cu). The fused route is two
+# launches: bf16 the Hopper kernel, f32 the CUDA-core dk/dv kernel's
+# fused instantiation, each followed by the ordered dq sum. The split
+# route is the CUDA-core dq and dk/dv kernels. No name contains another.
+WGMMA_BWD = "flash_bwd_wgmma_kernel"
+DQ_SUM = "flash_bwd_dq_sum_kernel"
+SIMT_BWD_KV = "flash_bwd_kv_kernel"
+SIMT_BWD_DQ = "flash_bwd_dq_kernel"
 
 
 def flash_pairs(sq, sk, causal):
@@ -313,6 +328,7 @@ def check_flash():
     # 64 and 128 inside its TMA boxes.
     for (b, sq, sk, h, hk, d) in ((2, 200, 200, 8, 2, 32),
                                   (1, 100, 300, 4, 4, 128),
+                                  (2, 300, 100, 4, 2, 64),
                                   (3, 70, 70, 2, 1, 16),
                                   (2, 333, 333, 8, 2, 48),
                                   (1, 257, 257, 4, 4, 80)):
@@ -488,9 +504,13 @@ def _kernel_group(name: str) -> str:
         return "paged_decode"
     if "flash_fwd_" in name:
         return "flash_fwd"
-    if "flash_bwd_kv_kernel" in name:
+    if WGMMA_BWD in name:
+        return "flash_bwd_wgmma"
+    if DQ_SUM in name:
+        return "flash_bwd_dq_sum"
+    if SIMT_BWD_KV in name:
         return "flash_bwd_kv"
-    if "flash_bwd_dq_kernel" in name:
+    if SIMT_BWD_DQ in name:
         return "flash_bwd_dq"
     if any(s in name.lower() for s in ("gemm", "gemv", "cutlass", "sm90_",
                                        "xmma", "cublas", "nvjet")):
@@ -503,8 +523,9 @@ def _kernel_group(name: str) -> str:
 def device_busy(fn, steps: int):
     """Device busy time per call of ``fn`` in ms, by kernel group, from a
     torch.profiler CUDA trace (kernels on one stream do not overlap, so
-    their durations add up to the busy time), and under "fwd_kernels"
-    the names of the flash forward kernels launched. None where the
+    their durations add up to the busy time), under "fwd_kernels" the
+    names of the flash forward kernels launched and under "launches" the
+    number of kernels of each group in the whole window. None where the
     trace has no device events."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -518,18 +539,20 @@ def device_busy(fn, steps: int):
             for _ in range(steps):
                 fn()
             torch.cuda.synchronize()
-    groups, names = {}, {}
+    groups, names, n = {}, {}, {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             us = e.time_range.elapsed_us()
             g = _kernel_group(e.name)
             groups[g] = groups.get(g, 0.0) + us
+            n[g] = n.get(g, 0) + 1
             names[e.name[:80]] = names.get(e.name[:80], 0.0) + us
     if not groups:
         return None
     out = {g: us / 1e3 / steps for g, us in sorted(groups.items())}
     out["total"] = sum(out.values())
     out["fwd_kernels"] = sorted({n for n in names if "flash_fwd_" in n})
+    out["launches"] = dict(sorted(n.items()))
     top = sorted(names.items(), key=lambda kv: -kv[1])[:8]
     REPORT.setdefault("top_kernels", []).append(
         [(n, us / 1e3 / steps) for n, us in top])
@@ -728,13 +751,37 @@ def check_grads(got, ref, dtype, what):
     return max(errs), max(rels)
 
 
-def train_inputs(b, s, h, hk, d, dtype, seed, layout="bshd"):
-    def shape(n):
-        return (b, s, n, d) if layout == "bshd" else (b, n, s, d)
+def train_inputs(b, s, h, hk, d, dtype, seed, layout="bshd", sk=None):
+    """q, k, v and the output gradient; k and v have sk keys (s if
+    None)."""
+    def shape(n, length):
+        return (b, length, n, d) if layout == "bshd" else (b, n, length, d)
 
-    return (randn(shape(h), dtype, seed), randn(shape(hk), dtype, seed + 1),
-            randn(shape(hk), dtype, seed + 2), randn(shape(h), dtype,
-                                                     seed + 3))
+    sk = s if sk is None else sk
+    return (randn(shape(h, s), dtype, seed),
+            randn(shape(hk, sk), dtype, seed + 1),
+            randn(shape(hk, sk), dtype, seed + 2),
+            randn(shape(h, s), dtype, seed + 3))
+
+
+def fused_ms(fn, dtype, iters: int = 20) -> dict:
+    """The fused route's device time from a profiler trace: its kernel
+    (bf16 the Hopper one, f32 the CUDA-core one) and the ordered dq sum,
+    each matched once a call, and their sum under "ms"."""
+    t = kernel_device_ms(fn, {
+        "kernel": WGMMA_BWD if dtype == torch.bfloat16 else SIMT_BWD_KV,
+        "dq_sum": DQ_SUM}, iters)
+    return dict(t, ms=t["kernel"] + t["dq_sum"])
+
+
+def check_repeatable(first, args, kw, what) -> bool:
+    """The fused route's dq, dk and dv are bitwise equal over two calls
+    on the same inputs (its dq is summed in a fixed order)."""
+    again = k_flash.flash_attention_bwd_fused(*args, **kw)
+    for name, a, b in zip(("dq", "dk", "dv"), first, again):
+        assert torch.equal(a, b), f"{what} {name}: two calls differ"
+    REPORT.setdefault("repeatable", []).append(what)
+    return True
 
 
 def check_training_kernels():
@@ -759,6 +806,8 @@ def check_training_kernels():
         torch.cuda.synchronize()
         fused_err, fused_rel = check_grads(fused, ref, dtype,
                                            f"fused {dtype}")
+        check_repeatable(fused, (q, k, v, o, lse, do), {},
+                         f"fused b{b} s{s} h{h} d{d} {dtype}")
         check_grads(split, ref, dtype, f"split {dtype}")
         dq_err = max_err(split[0], ref[0])
         dkv_err = max(max_err(split[1], ref[1]), max_err(split[2], ref[2]))
@@ -772,13 +821,12 @@ def check_training_kernels():
         dev_ms = kernel_device_ms(
             lambda: k_flash.flash_attention_fwd_lse(q, k, v),
             {"fwd_lse": WGMMA_FWD if dtype == torch.bfloat16 else SIMT_FWD})
-        dev_ms.update(kernel_device_ms(
-            lambda: k_flash.flash_attention_bwd_fused(*args),
-            {"bwd_fused": "flash_bwd_kv_kernel"}))
+        fused_t = fused_ms(lambda: k_flash.flash_attention_bwd_fused(*args),
+                           dtype)
+        dev_ms["bwd_fused"] = fused_t["ms"]
         dev_ms.update(kernel_device_ms(
             lambda: k_flash.flash_attention_bwd_split(*args),
-            {"bwd_dq": "flash_bwd_dq_kernel",
-             "bwd_dkv": "flash_bwd_kv_kernel"}))
+            {"bwd_dq": SIMT_BWD_DQ, "bwd_dkv": SIMT_BWD_KV}))
         wrapper_ms = {
             "fwd_lse": time_ms(lambda: k_flash.flash_attention_fwd_lse(
                 q, k, v), 20),
@@ -809,6 +857,8 @@ def check_training_kernels():
                        library_ms=lib_ms["fwd_lse" if name == "fwd_lse"
                                          else "bwd"])
             for name in errs}
+        rows[key]["bwd_fused"].update(kernel_ms=fused_t["kernel"],
+                                      dq_sum_ms=fused_t["dq_sum"])
         rows[key]["wrapper_ms"] = wrapper_ms
         rows[key]["shape"] = f"b{b} s{s} h{h} d{d} causal bshd"
         log(f"[7] training kernels {key}: {rows[key]}")
@@ -873,22 +923,27 @@ def sdpa_times(q, k, v, do):
 
 def check_training_shapes():
     """Beyond the training shape: s 1024, head dims 32 and 128, GQA,
-    layout bhsd, dense; then FlashAttention end to end with the split
-    path forced (budget 0), against the plain versions."""
+    layout bhsd, dense, sq != sk (causal sq > sk and sq < sk, dense
+    sq > sk); the fused route repeatable at the GQA shape; then
+    FlashAttention end to end with the split path forced (budget 0),
+    against the plain versions."""
     out = []
-    cases = [(b, s, h, hk, d, dtype, layout, causal)
-             for (b, s, h, hk, d, layout, causal) in (
-                 (2, 1024, 12, 12, 64, "bshd", True),
-                 (2, 1024, 12, 12, 64, "bhsd", True),
-                 (2, 300, 8, 8, 32, "bshd", True),
-                 (1, 200, 4, 4, 128, "bshd", False),
-                 (2, 333, 8, 2, 64, "bshd", True),
-                 (1, 129, 4, 1, 128, "bhsd", False),
-                 (2, 333, 8, 2, 48, "bshd", True),
-                 (1, 300, 4, 4, 80, "bhsd", True))
+    cases = [(b, sq, sk, h, hk, d, dtype, layout, causal)
+             for (b, sq, sk, h, hk, d, layout, causal) in (
+                 (2, 1024, 1024, 12, 12, 64, "bshd", True),
+                 (2, 1024, 1024, 12, 12, 64, "bhsd", True),
+                 (2, 300, 300, 8, 8, 32, "bshd", True),
+                 (1, 200, 200, 4, 4, 128, "bshd", False),
+                 (2, 333, 333, 8, 2, 64, "bshd", True),
+                 (1, 129, 129, 4, 1, 128, "bhsd", False),
+                 (2, 333, 333, 8, 2, 48, "bshd", True),
+                 (1, 300, 300, 4, 4, 80, "bhsd", True),
+                 (1, 300, 100, 4, 4, 64, "bshd", True),
+                 (1, 100, 300, 4, 4, 64, "bshd", True),
+                 (1, 300, 100, 4, 2, 64, "bhsd", False))
              for dtype in (torch.bfloat16, torch.float32)]
-    for (b, s, h, hk, d, dtype, layout, causal) in cases:
-        q, k, v, do = train_inputs(b, s, h, hk, d, dtype, 60, layout)
+    for (b, sq, sk, h, hk, d, dtype, layout, causal) in cases:
+        q, k, v, do = train_inputs(b, sq, h, hk, d, dtype, 60, layout, sk)
         kw = dict(causal=causal, layout=layout)
         o, lse = k_flash.flash_attention_fwd_lse(q, k, v, **kw)
         o_ref, lse_ref = k_flash.flash_attention_fwd_lse_reference(
@@ -897,9 +952,12 @@ def check_training_shapes():
         assert max_err(lse, lse_ref) <= TOL[("flash", torch.float32)]
         ref = k_flash.flash_attention_bwd_reference(q, k, v, o, lse, do,
                                                     **kw)
-        what = f"b{b} s{s} h{h}/{hk} d{d} {layout} causal={causal}"
-        e_f, _ = check_grads(k_flash.flash_attention_bwd_fused(
-            q, k, v, o, lse, do, **kw), ref, dtype, "fused " + what)
+        what = f"b{b} sq{sq} sk{sk} h{h}/{hk} d{d} {layout} causal={causal}"
+        fused = k_flash.flash_attention_bwd_fused(q, k, v, o, lse, do, **kw)
+        e_f, _ = check_grads(fused, ref, dtype, "fused " + what)
+        if (sq, hk, d) == (333, 2, 64):
+            check_repeatable(fused, (q, k, v, o, lse, do), kw,
+                             f"fused {what} {dtype}")
         e_s, _ = check_grads(k_flash.flash_attention_bwd_split(
             q, k, v, o, lse, do, **kw), ref, dtype, "split " + what)
         out.append(dict(case=what, dtype=str(dtype).split(".")[-1],
@@ -933,17 +991,67 @@ def check_training_shapes():
     return out
 
 
+def kernel_template(name: str):
+    """(kernel, template arguments) of a mangled entry function name,
+    e.g. ``..._22flash_bwd_wgmma_kernelILi64EEEv...`` -> (
+    "flash_bwd_wgmma_kernel", (64,)): ints and bools as such, float as
+    "f32", __nv_bfloat16 as "bf16". (None, ()) for another name."""
+    import re
+
+    m = re.search(r"(?<=\d)(flash_[a-z_]+_kernel)I", name)
+    if m is None:
+        return None, ()
+    rest, args = name[m.end():], []
+    while rest and rest[0] != "E":
+        lit = re.match(r"L([ib])(\d+)E", rest)
+        named = re.match(r"(\d+)", rest)
+        if lit:
+            val = int(lit.group(2))
+            args.append(val if lit.group(1) == "i" else bool(val))
+            rest = rest[lit.end():]
+        elif named:
+            n = int(named.group(1))
+            typ = rest[named.end():named.end() + n]
+            args.append("bf16" if "bfloat16" in typ else typ)
+            rest = rest[named.end() + n:]
+        elif rest[0] == "f":
+            args.append("f32")
+            rest = rest[1:]
+        else:
+            raise ValueError(f"cannot read the template arguments of {name}")
+    return m.group(1), tuple(args)
+
+
+def ptxas_label(kern: str, args: tuple):
+    """The report's label of one instantiation, or None for the ones it
+    leaves out (the CUDA-core kernels at head dims other than 64)."""
+    if kern in (WGMMA_FWD, WGMMA_BWD):
+        return f"{kern}_dp{args[0]}_bf16"
+    if kern == DQ_SUM:
+        return f"{kern}_{args[0]}"
+    dtype, d = args[0], args[1]
+    if d != 64:
+        return None
+    if kern == SIMT_BWD_KV:
+        return f"{kern}_{'fused' if args[2] else 'split'}_{dtype}"
+    return f"{kern}_{dtype}"
+
+
 def ptxas_report() -> dict:
     """Registers and spills of the training sources' kernels, from
     nvcc's -Xptxas -v report of the libraries this run loaded (kept
-    beside each library, so a reused build has it too): the bf16
-    forward (the Hopper kernel) at both padded head dims, with its
-    dynamic shared memory, and every other kernel at head dim 64. The
-    Hopper kernel's count is the launch's (384 threads, 168 a thread);
-    setmaxnreg then moves the producer's registers to the consumers."""
+    beside each library, so a reused build has it too): the Hopper
+    kernels (forward and fused backward) at both padded head dims, with
+    their dynamic shared memory, the ordered dq sum in both dtypes, and
+    every CUDA-core kernel at head dim 64. A Hopper kernel's count is the
+    launch's (384 threads, 168 a thread); setmaxnreg then moves the
+    producer's registers to the consumers."""
     import re
 
-    fwd = k_flash._fwd_lib()
+    fwd, bwd = k_flash._fwd_lib(), k_flash._bwd_lib()
+    smem = {WGMMA_FWD: lambda dp: fwd.flash_fwd_smem_bytes(1, dp),
+            WGMMA_BWD: bwd.flash_bwd_smem_bytes,
+            SIMT_FWD: lambda d: fwd.flash_fwd_smem_bytes(0, d)}
     out, warns = {}, []
     for src in ("flash_fwd", "flash_bwd"):
         text = _build.build_report(src)
@@ -952,34 +1060,30 @@ def ptxas_report() -> dict:
                 r"Compiling entry function '(\w+)'.*?\n(.*?)Used (\d+) "
                 r"registers", text, re.S):
             name, body, regs = m.group(1), m.group(2), int(m.group(3))
+            kern, args = kernel_template(name)
+            label = kern and ptxas_label(kern, args)
+            if label is None:
+                continue
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
                               r"spill loads", body)
             row = dict(registers=regs,
                        spill_stores=int(spill.group(1)) if spill else None,
                        spill_loads=int(spill.group(2)) if spill else None)
-            wg = re.search(WGMMA_FWD + r"ILi(64|128)E", name)
-            if wg:
-                dp = int(wg.group(1))
-                row["dynamic_smem_bytes"] = fwd.flash_fwd_smem_bytes(1, dp)
-                out[f"{WGMMA_FWD}_dp{dp}_bf16"] = row
-                continue
-            if "Li64E" not in name:
-                continue
-            kern = re.search(r"(?<=\d)(flash_[a-z_]+_kernel)I"
-                             r"(13__nv_bfloat16|f)Li64E(Lb[01]E)?", name)
-            label = (kern.group(1)
-                     + ("_fused" if kern.group(3) == "Lb1E" else
-                        "_split" if kern.group(3) == "Lb0E" else "")
-                     + ("_bf16" if "bfloat16" in kern.group(2) else "_f32"))
-            if label == f"{SIMT_FWD}_f32":
-                row["dynamic_smem_bytes"] = fwd.flash_fwd_smem_bytes(0, 64)
+            if kern in smem:
+                row["dynamic_smem_bytes"] = smem[kern](
+                    args[0] if kern != SIMT_FWD else args[1])
             out[label] = row
-    want = {f"{k}_{t}" for t in ("bf16", "f32")
-            for k in ("flash_bwd_kv_kernel_fused",
-                      "flash_bwd_kv_kernel_split", "flash_bwd_dq_kernel")}
-    want |= {f"{SIMT_FWD}_f32", f"{WGMMA_FWD}_dp64_bf16",
-             f"{WGMMA_FWD}_dp128_bf16"}
+    want = {f"{WGMMA_FWD}_dp64_bf16", f"{WGMMA_FWD}_dp128_bf16",
+            f"{SIMT_FWD}_f32", f"{WGMMA_BWD}_dp64_bf16",
+            f"{WGMMA_BWD}_dp128_bf16", f"{DQ_SUM}_bf16", f"{DQ_SUM}_f32",
+            f"{SIMT_BWD_KV}_fused_f32", f"{SIMT_BWD_KV}_split_bf16",
+            f"{SIMT_BWD_KV}_split_f32", f"{SIMT_BWD_DQ}_bf16",
+            f"{SIMT_BWD_DQ}_f32"}
     assert set(out) == want, f"ptxas report: {sorted(out)} != {sorted(want)}"
+    for label in (f"{WGMMA_BWD}_dp64_bf16", f"{WGMMA_BWD}_dp128_bf16",
+                  f"{DQ_SUM}_bf16"):
+        assert out[label]["spill_stores"] in (0, None) and \
+            out[label]["spill_loads"] in (0, None), (label, out[label])
     REPORT["ptxas_warnings"] = warns
     log(f"[7] ptxas: {out}; warnings: {warns}")
     return out
@@ -1062,6 +1166,11 @@ def training():
     assert busy is not None, "no device events in the train step trace"
     assert busy["fwd_kernels"] and all(
         WGMMA_FWD in n for n in busy["fwd_kernels"]), busy
+    # The backward: the Hopper kernel and its dq sum once per layer, no
+    # CUDA-core backward kernel.
+    n = busy["launches"]
+    assert n.get("flash_bwd_wgmma") == L and n.get("flash_bwd_dq_sum") == L \
+        and "flash_bwd_kv" not in n and "flash_bwd_dq" not in n, n
     out = dict(model="GPT-2-small bf16 use_flash remat dots_flash, AdamW "
                "bf16 mu", batch=b, seq=s, losses=losses, step_ms=wall,
                median_step_ms=step_ms,
@@ -1122,6 +1231,7 @@ def check_long_kernels():
     and the fused one, each against its plain version over all heads
     (two at a time), timed beside their bounds and SDPA's."""
     b, s, h, d, dtype = 1, 16384, 12, 64, torch.bfloat16
+    torch.cuda.reset_peak_memory_stats()
     q, k, v, do = train_inputs(b, s, h, h, d, dtype, 80)
     o, lse = k_flash.flash_attention_fwd_lse(q, k, v)
     o_ref, lse_ref = by_head_groups(
@@ -1140,6 +1250,9 @@ def check_long_kernels():
 
     ref = plain_bwd()
     split = k_flash.flash_attention_bwd_split(*args)
+    # The fused route's f32 dq workspace, [128 key tiles, 1, 12, 16384,
+    # 64], is the largest allocation of this phase.
+    ws_gb = 4 * -(-s // 128) * b * h * s * d / 1e9
     fused = k_flash.flash_attention_bwd_fused(*args)
     torch.cuda.synchronize()
     what = f"b{b} s{s} h{h} d{d} bf16"
@@ -1158,13 +1271,12 @@ def check_long_kernels():
     dev_ms = kernel_device_ms(
         lambda: k_flash.flash_attention_fwd_lse(q, k, v),
         {"fwd_lse": WGMMA_FWD}, iters=10)
-    dev_ms.update(kernel_device_ms(
-        lambda: k_flash.flash_attention_bwd_fused(*args),
-        {"bwd_fused": "flash_bwd_kv_kernel"}, iters=10))
+    fused_t = fused_ms(lambda: k_flash.flash_attention_bwd_fused(*args),
+                       dtype, iters=10)
+    dev_ms["bwd_fused"] = fused_t["ms"]
     dev_ms.update(kernel_device_ms(
         lambda: k_flash.flash_attention_bwd_split(*args),
-        {"bwd_dq": "flash_bwd_dq_kernel", "bwd_dkv": "flash_bwd_kv_kernel"},
-        iters=10))
+        {"bwd_dq": SIMT_BWD_DQ, "bwd_dkv": SIMT_BWD_KV}, iters=10))
     wrapper_ms = {
         "fwd_lse": time_ms(lambda: k_flash.flash_attention_fwd_lse(q, k, v),
                            10),
@@ -1188,8 +1300,12 @@ def check_long_kernels():
                                      else "bwd"])
         for name in errs}
     rows["fwd_lse"]["lse_err"] = lse_err
+    rows["bwd_fused"].update(kernel_ms=fused_t["kernel"],
+                             dq_sum_ms=fused_t["dq_sum"])
     rows["wrapper_ms"] = wrapper_ms
     rows["shape"] = f"b{b} s{s} h{h} d{d} causal bshd"
+    rows["fused_workspace_gb"] = ws_gb
+    rows["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
     log(f"[10] long-sequence kernels: {rows}")
     del q, k, v, do, o, lse
     torch.cuda.empty_cache()
@@ -1214,6 +1330,7 @@ def check_long_kernels():
 
 
 def main():
+    t_start = time.perf_counter()
     card = card_line()
     log(f"[1] card: {card}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1276,8 +1393,8 @@ def main():
     # Each training kernel at the shape of the path that launches it:
     # the forward with LSE and the fused backward at the training step's
     # [8, 1023, 12, 64], the split pair at the long step's [1, 16384,
-    # 12, 64]. wrapper_ms: the whole wrapper call (Δ, dq's zeroing and
-    # cast included), CUDA events as library_ms is timed.
+    # 12, 64]. wrapper_ms: the whole wrapper call (Δ and the fused
+    # route's LSE/Δ tiles included), CUDA events as library_ms is timed.
     tk = REPORT["train_kernels"]["bfloat16"]
     lk = REPORT["long_kernels"]
     tr, lt = REPORT["training"], REPORT["long_training"]
@@ -1301,6 +1418,11 @@ def main():
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
             shape=at["shape"] + " bf16"))
+        if label == "bwd_fused":
+            # ms is the route's two kernels: the Hopper kernel and the
+            # ordered dq sum.
+            kernels[-1].update(kernel_ms=row["kernel_ms"],
+                               dq_sum_ms=row["dq_sum_ms"])
     se = REPORT["serve_engine"]
     serving = dict(card=card, model="GPT-2-small bf16 use_flash",
                    tokens_per_s=se["tokens_per_s"],
@@ -1312,6 +1434,8 @@ def main():
                       tokens_per_s=tr["tokens_per_s"],
                       device_idle_share=tr["device_idle_share"])
     REPORT["kernels"] = kernels
+    REPORT["wall_s"] = time.perf_counter() - t_start
+    log(f"[end] chip_smoke wall time {REPORT['wall_s']:.1f} s")
     os.makedirs("smoke_out", exist_ok=True)
     with open(os.path.join("smoke_out", "chip_smoke.json"), "w") as f:
         json.dump(REPORT, f, indent=1, default=str)

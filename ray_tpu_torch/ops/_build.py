@@ -3,8 +3,9 @@
 Each source is compiled at first use by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, and loaded with ``ctypes`` (no
 PyTorch headers: a build takes seconds, not minutes). Libraries land in
-``ops/build/`` (listed in .gitignore), named by a hash of the source
-and the flags, so an edited source is rebuilt and an unchanged one is
+``ops/build/`` (listed in .gitignore), named by a hash of the source,
+of every ``#include "..."`` file under ``csrc/`` it reaches, and of the
+flags, so an edited source or header is rebuilt and an unchanged one is
 reused. All missing libraries are built together, one ``nvcc`` process
 per source started at once. ``-Xptxas -v`` makes nvcc report each
 kernel's registers, shared memory and spills; that report is kept
@@ -22,6 +23,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -58,8 +60,28 @@ def sources() -> Dict[str, Path]:
     return {p.stem: p for p in sorted(CSRC.glob("*.cu"))}
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def _local_includes(src: Path) -> list:
+    """The ``#include "..."`` files under ``csrc/`` that ``src`` reaches,
+    directly or through another such file, in a fixed order."""
+    found, todo = set(), [src]
+    while todo:
+        for name in _INCLUDE.findall(todo.pop().read_bytes()):
+            inc = (CSRC / name.decode()).resolve()
+            if inc.is_file() and inc.is_relative_to(CSRC) and \
+                    inc not in found:
+                found.add(inc)
+                todo.append(inc)
+    return sorted(found)
+
+
 def _target(src: Path) -> Path:
     h = hashlib.sha256(src.read_bytes())
+    for inc in _local_includes(src):
+        h.update(inc.relative_to(CSRC).as_posix().encode())
+        h.update(inc.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
 

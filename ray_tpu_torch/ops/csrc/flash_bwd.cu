@@ -1,4 +1,4 @@
-// Flash attention backward for Hopper (sm_90a): the fused kernel and the
+// Flash attention backward for Hopper (sm_90a): the fused route and the
 // split dq / dk-dv kernels.
 //
 // Replaces three TPU kernels of ray_tpu/ops/pallas/flash.py, all behind
@@ -22,49 +22,83 @@
 // are summed over its group inside the kernel (the TPU path expands K/V
 // with jnp.repeat, whose transpose is the same group sum).
 //
-// What bounds them on the H100: operations. Per causal head the backward
-// does ~2.5x the forward's 2 * 2 * s^2 / 2 * d flops on ~8 s d values,
-// far above the ~295 flop/byte ridge, so the tensor cores are the bound
-// a fast version would reach. These first versions are the simple, right
-// ones: f32 FMAs on the CUDA cores with 64 x 64 tiles, as the forward
-// (flash_fwd.cu); wgmma and TMA are later work (PERF.md has the gap).
+// What bounds them on the H100: operations. Per causal head the fused
+// backward does 2.5x the forward's 2 * 2 * s^2 / 2 * d flops (five
+// products) on ~8 s d values, far above the ~295 flop/byte ridge, so the
+// bf16 tensor cores are the bound.
 //
-// The design, and what it does about Hopper:
-//   * The TPU's fused kernel walks every k block of one (b, h) in order
-//     and keeps dq for the whole sequence in an f32 VMEM scratch. At
-//     s 1024, d 64 that scratch plus the resident q/dO/K/V is ~1 MB,
-//     far over 227 KB of shared memory, and CUDA blocks run in no order.
-//     So the fused kernel runs one CTA per (b, kv head, 64-key tile):
-//     dk and dv of the tile stay in registers while the CTA loops over
-//     the q tiles from the causal diagonal down, and each q tile's dq
-//     contribution ds.k is added with f32 atomicAdd into a [b, h, s, d]
-//     f32 buffer that the wrapper zeroes on the same stream. The order
-//     of those additions depends on how the CTAs are scheduled, so dq is
-//     not bit-identical run to run: it differs in the last bits of an
-//     f32 sum of at most s/64 terms, well inside the tolerance the
-//     gradient is held to (and far below bf16's rounding, the dtype dq
-//     is cast to on the training path). s and p are computed once per
-//     (q tile, k tile) pair, as in the TPU's fused kernel.
-//   * The split path needs no atomics: flash_bwd_dq_kernel runs one CTA
-//     per (b, head, 64-row q tile) looping over the k tiles up to the
-//     diagonal; flash_bwd_dkv_kernel one CTA per (b, kv head, k tile)
-//     looping over the q tiles from the diagonal down. Each recomputes
-//     s and p, as the TPU's split kernels do.
-//   * Tiles are staged through shared memory as f32 with 16-byte loads,
-//     rows padded to d + 1 floats so the inner products are free of bank
-//     conflicts. Each of the 256 threads owns a 4 x 4 patch of the score
-//     tile and a 4 x (d/16) patch of each accumulator. Arbitrary
-//     batch/head/sequence strides with a unit-stride head dim: "bshd"
-//     and "bhsd" run without a transpose, and gradients are written in
-//     the inputs' layout.
-//   * Causal tiles are issued longest first.
+// The fused route, bfloat16: flash_bwd_wgmma_kernel<DP>, then
+// flash_bwd_dq_sum_kernel. The TPU kernel walks every k block of one
+// (b, h) in order and keeps dq for the whole sequence in an f32 VMEM
+// scratch; Hopper has 227 KB of shared memory and runs CTAs in no order.
+// The design:
+//   * one CTA of three warpgroups per (kv head, batch, 128-key tile), the
+//     key tile the grid's slowest axis, so the tiles with the longest
+//     causal walks (the first) start first. K and V of the tile are
+//     loaded once by TMA; the CTA walks the kv head's group of query
+//     heads and, for each, the q tiles from the causal diagonal down
+//     (the first is floor(k0 / BQ), as the reference's `lower`);
+//   * warpgroup 0 is the producer: one thread keeps a two-stage ring of
+//     Q and dO tiles (4-D tensor maps with the tensors' own byte strides,
+//     64-column boxes, the 128-byte swizzle; TMA's zero fill pads the head
+//     dim to DP = 64 or 128 and rows past sq) and of the tile's LSE and
+//     delta rows (one bulk copy from a [b, h, q tiles, 2, BQ] buffer the
+//     wrapper pads with zeros), under "full" and "empty" mbarriers, then
+//     gives its registers to the consumers with setmaxnreg;
+//   * warpgroups 1 and 2 each own 64 of the tile's keys and issue the
+//     five products on wgmma. They compute the scores transposed, so that
+//     p and ds land in registers in the layout of wgmma's A operand:
+//       S^T = K Q^T and dP^T = V dO^T (both operands K-major);
+//       P^T = exp2(S^T scale log2(e) - lse log2(e)), masked, and
+//       dS^T = P^T (dP^T - delta) scale, each rounded to bf16 in registers;
+//       dV += P^T dO and dK += dS^T Q, A from registers, dO and Q read
+//       MN-major through the transpose bit; dK and dV stay in f32
+//       registers for the whole walk;
+//       dQ_tile = dS K: dS^T is stored to shared memory (the 128-byte
+//       swizzle written by hand, two buffers, one named barrier a q tile
+//       between the consumers) and read back as an MN-major A operand, K
+//       as an MN-major B. Each consumer computes one 64 x 64 block of the
+//       tile's dq: q rows 64w.. when BQ = 128, head-dim columns 64w.. when
+//       DP = 128 (BQ DP = 8192);
+//   * dq without atomics, in a fixed order: the CTA writes its tile's dq
+//     contribution, f32, to slot kt of a [n_k_tiles, b, h, sq, d]
+//     workspace, and flash_bwd_dq_sum_kernel sums, for every element, the
+//     slots 0 .. last visible key tile in increasing kt and writes dq in
+//     the input dtype. Two calls on the same inputs give the same bits.
+//     The price is the workspace's traffic: ~113 MB written and read at
+//     the training shape [8, 1023, 12, 64].
+//   Tiles: BK 128; BQ 128 at DP 64 and 64 at DP 128, so that the
+//   consumers' live registers (S^T and dP^T, BQ / 2 floats each; dK and
+//   dV, DP / 2 each) stay at 192 floats. The launch geometry (tiles,
+//   grid, tensor maps) comes from ops/flash.py `bwd_geometry`.
+//
+// The fused route, float32: flash_bwd_kv_kernel<float, D, true>, the
+// CUDA-core kernel (wgmma has no f32 inputs, and TF32 would not hold the
+// f32 gradient tolerance): one CTA per (b, kv head, 64-key tile), dk and
+// dv of the tile in registers while it loops over the q tiles from the
+// causal diagonal down; each q tile's dq contribution goes to the same
+// workspace, one slot per 64-key tile, for the same sum kernel.
+//
+// The split route (both dtypes, the CUDA-core design): no workspace:
+// flash_bwd_dq_kernel runs one CTA per (b, head, 64-row q tile) looping
+// over the k tiles up to the diagonal; flash_bwd_kv_kernel<T, D, false>
+// one CTA per (b, kv head, 64-key tile) looping over the q tiles from the
+// diagonal down. Each recomputes s and p, as the TPU's split kernels do.
+// Tiles are staged through shared memory as f32 with 16-byte loads, rows
+// padded to d + 1 floats against bank conflicts; each of the 256 threads
+// owns a 4 x 4 patch of the score tile and a 4 x (d/16) patch of each
+// accumulator; any batch/head/sequence strides with a unit-stride head
+// dim, so "bshd" and "bhsd" run without a transpose.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include <type_traits>
+
+#include "hopper.cuh"   // TMA, mbarrier, wgmma, tensor-map encoding
 
 namespace {
+
+// ======================================================= CUDA-core kernels
 
 constexpr int kB = 64;          // q and k tile rows
 constexpr int kThreads = 256;   // 16 x 16 threads, 4 x 4 score patch each
@@ -99,9 +133,11 @@ struct Args {
   const void* dout;
   const float* lse;     // [b, h, sq] f32
   const float* delta;   // [b, h, sq] f32
-  void* dq;             // T, or f32 for the fused kernel's atomics
+  void* dq;             // T (split dq kernel)
   void* dk;
   void* dv;
+  float* dq_ws;         // fused: [n_k_tiles, b, h, sq, d] f32 workspace
+  int64_t ws_slot;      // elements of one workspace slot, b * h * sq * d
   Str sq_, sk_, sv_, sdo_, sdq_, sdk_, sdv_;
   int h, group, sq, sk, causal;
   float scale;
@@ -260,8 +296,9 @@ constexpr int smem_floats_q() {    // dq kernel
 }
 
 // One CTA per (k tile, kv head, batch): dk and dv of the tile, summed
-// over the kv head's group of query heads; with kFused, also each q
-// tile's dq contribution by f32 atomicAdd into a.dq.
+// over the kv head's group of query heads; with kFused (float32 only),
+// also each q tile's dq contribution, f32, into workspace slot kt for
+// flash_bwd_dq_sum_kernel.
 template <typename T, int D, bool kFused>
 __global__ void __launch_bounds__(kThreads) flash_bwd_kv_kernel(Args a) {
   constexpr int kDP = D + 1;
@@ -319,15 +356,14 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_kv_kernel(Args a) {
 #pragma unroll
           for (int j = 0; j < kDJ; ++j) dq[i][j] = 0.f;
         acc_dq<D>(dq, dss, ks);
-        float* dqb = static_cast<float*>(a.dq) + bi * a.sdq_.b +
-                     hi * a.sdq_.h;
+        float* dqb = a.dq_ws + kt * a.ws_slot +
+                     ((int64_t)bi * a.h + hi) * a.sq * D;
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int r = q0 + ty + 16 * i;
           if (r >= a.sq) continue;
 #pragma unroll
-          for (int j = 0; j < kDJ; ++j)
-            atomicAdd(dqb + r * a.sdq_.s + tx + 16 * j, dq[i][j]);
+          for (int j = 0; j < kDJ; ++j) dqb[r * D + tx + 16 * j] = dq[i][j];
         }
       }
     }
@@ -409,9 +445,325 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Args a) {
   }
 }
 
-// kind: 0 = fused, 1 = dq, 2 = dk/dv.
+// ================================================ bfloat16, fused route
+
+constexpr int kBwdBK = 128;       // keys of a CTA, 64 a consumer
+constexpr int kBwdStages = 2;     // Q / dO ring depth
+constexpr int kBwdThreads = 384;  // producer + two consumer warpgroups
+
+template <int DP>
+struct BwdLayout {
+  static constexpr int kBQ = 8192 / DP;             // q rows of a tile
+  static constexpr int kPanels = DP / kPanelCols;
+  static constexpr int kPanelK = kBwdBK * 128;      // bytes of a K/V panel
+  static constexpr int kPanelQ = kBQ * 128;         // bytes of a Q/dO panel
+  static constexpr int kPanelDS = kBwdBK * 128;     // 128 keys x 64 q rows
+  static constexpr int kKBytes = kPanels * kPanelK;         // K or V
+  static constexpr int kQBytes = kPanels * kPanelQ;         // Q or dO, 1 stage
+  static constexpr int kDSBytes = (kBQ / 64) * kPanelDS;    // one dS buffer
+  static constexpr int kRowBytes = 2 * kBQ * 4;             // LSE, delta
+  static constexpr int kK = 0;
+  static constexpr int kV = kK + kKBytes;
+  static constexpr int kQ = kV + kKBytes;
+  static constexpr int kDO = kQ + kBwdStages * kQBytes;
+  static constexpr int kDS = kDO + kBwdStages * kQBytes;
+  static constexpr int kRows = kDS + 2 * kDSBytes;
+  static constexpr int kBars = kRows + kBwdStages * kRowBytes;
+  // full[s], empty[s], then the K/V barrier; 1024 bytes of slack to
+  // align the tiles to the 128-byte swizzle's 1024-byte period.
+  static constexpr int kSmem = kBars + 8 * (2 * kBwdStages + 1) + 1024;
+};
+
+// One CTA per (kv head, batch, 128-key tile); see the note at the top.
+// rows: [b, h, nq, 2, BQ] f32, each q tile's LSE then delta, zero past
+// sq; dq_ws: [n_k_tiles, b, h, sq, d] f32, slot kt written for every q
+// tile this CTA visits.
+template <int DP>
+__global__ void __launch_bounds__(kBwdThreads, 1) flash_bwd_wgmma_kernel(
+    __grid_constant__ const CUtensorMap tm_q,
+    __grid_constant__ const CUtensorMap tm_k,
+    __grid_constant__ const CUtensorMap tm_v,
+    __grid_constant__ const CUtensorMap tm_do,
+    const float* __restrict__ rows, float* __restrict__ dq_ws,
+    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int h,
+    int group, int sq, int sk, int d, int nq, int64_t ws_slot,
+    int64_t dk_sb, int64_t dk_sh, int64_t dk_ss, int64_t dv_sb,
+    int64_t dv_sh, int64_t dv_ss, int causal, float scale) {
+  using L = BwdLayout<DP>;
+  constexpr int BQ = L::kBQ;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* const gbase = smem_raw + (base - raw);   // generic pointer
+  const uint32_t sK = base + L::kK, sV = base + L::kV, sQ = base + L::kQ;
+  const uint32_t sDO = base + L::kDO, sDS = base + L::kDS;
+  const uint32_t sRows = base + L::kRows;
+  const uint32_t bar_full = base + L::kBars;
+  const uint32_t bar_empty = bar_full + 8 * kBwdStages;
+  const uint32_t bar_kv = bar_empty + 8 * kBwdStages;
+
+  const int kvh = blockIdx.x, bi = blockIdx.y, kt = blockIdx.z;
+  const int k0 = kt * kBwdBK;
+  const int q_first = causal ? k0 / BQ : 0;   // the reference's `lower`
+  const int walk = max(nq - q_first, 0);      // q tiles per query head
+  const int n_iter = group * walk;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kBwdStages; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, 2);   // one arrival per consumer
+    }
+    mbar_init(bar_kv, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // Producer: one thread loads K and V once, then keeps the ring full.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(bar_kv, 2 * L::kKBytes);
+      for (int p = 0; p < L::kPanels; ++p) {
+        tma_load(sK + p * L::kPanelK, &tm_k, bar_kv, p * kPanelCols, kvh, k0,
+                 bi);
+        tma_load(sV + p * L::kPanelK, &tm_v, bar_kv, p * kPanelCols, kvh, k0,
+                 bi);
+      }
+      for (int it = 0; it < n_iter; ++it) {
+        const int s = it % kBwdStages;
+        const int hi = kvh * group + it / walk;
+        const int qt = q_first + it % walk;
+        const uint32_t full = bar_full + 8 * s;
+        mbar_wait(bar_empty + 8 * s, ((it / kBwdStages) & 1) ^ 1);
+        mbar_expect_tx(full, 2 * L::kQBytes + L::kRowBytes);
+        for (int p = 0; p < L::kPanels; ++p) {
+          const uint32_t off = s * L::kQBytes + p * L::kPanelQ;
+          tma_load(sQ + off, &tm_q, full, p * kPanelCols, hi, qt * BQ, bi);
+          tma_load(sDO + off, &tm_do, full, p * kPanelCols, hi, qt * BQ, bi);
+        }
+        bulk_load(sRows + s * L::kRowBytes,
+                  rows + (((int64_t)bi * h + hi) * nq + qt) * 2 * BQ,
+                  L::kRowBytes, full);
+      }
+    }
+  } else {
+    // Consumers: warpgroup 1 takes keys k0..k0+63, warpgroup 2 the next
+    // 64. Accumulator element i of a thread sits at row r0 + 8 * ((i >> 1)
+    // & 1) and column 8 * (i >> 2) + c2 + (i & 1).
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;");
+    const int w = wg - 1;
+    const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+    const int r0 = 16 * warp + lane / 4;
+    const int c2 = 2 * (lane % 4);
+    const int key0 = k0 + 64 * w + r0;   // this thread's keys: key0, +8
+    const float scale_log2 = scale * kLog2e;
+    // This consumer's 64 x 64 block of each tile's dq.
+    const int qpan = BQ == 128 ? w : 0;
+    const int dpan = DP == 128 ? w : 0;
+    float dk_acc[DP / 2], dv_acc[DP / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+    mbar_wait(bar_kv, 0);
+    for (int it = 0; it < n_iter; ++it) {
+      const int s = it % kBwdStages;
+      const int hi = kvh * group + it / walk;
+      const int q0 = (q_first + it % walk) * BQ;
+      const uint32_t sQs = sQ + s * L::kQBytes, sDOs = sDO + s * L::kQBytes;
+      mbar_wait(bar_full + 8 * s, (it / kBwdStages) & 1);
+
+      // S^T = K Q^T and dP^T = V dO^T: this warpgroup's 64 keys (A)
+      // against the tile's BQ rows (B), both K-major, 16 columns of the
+      // head dim a step.
+      float st[BQ / 2], dpt[BQ / 2];
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        const uint32_t ka = (kk / 4) * L::kPanelK + w * 64 * 128 +
+                            (kk % 4) * 32;
+        const uint32_t qb = (kk / 4) * L::kPanelQ + (kk % 4) * 32;
+        wgmma_ss<0, 0>(st, smem_desc(sK + ka, 16, 1024),
+                       smem_desc(sQs + qb, 16, 1024), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        const uint32_t ka = (kk / 4) * L::kPanelK + w * 64 * 128 +
+                            (kk % 4) * 32;
+        const uint32_t qb = (kk / 4) * L::kPanelQ + (kk % 4) * 32;
+        wgmma_ss<0, 0>(dpt, smem_desc(sV + ka, 16, 1024),
+                       smem_desc(sDOs + qb, 16, 1024), kk > 0);
+      }
+      wg_commit();
+      wg_wait_all();
+      pin(st);
+      pin(dpt);
+
+      // P^T and dS^T, f32, rounded to bf16 in pairs (i, i + 1): the A
+      // operand's registers. Masked where the query row is past sq, the
+      // key past sk, or (causal) the key after the query row.
+      const float* lse_s =
+          reinterpret_cast<const float*>(gbase + L::kRows + s * L::kRowBytes);
+      const float* dl_s = lse_s + BQ;
+      const bool edge = q0 + BQ > sq || k0 + 64 * w + 64 > sk ||
+                        (causal && q0 < k0 + 64 * w + 63);
+      uint32_t pp[BQ / 4], pds[BQ / 4];
+#pragma unroll
+      for (int m = 0; m < BQ / 4; ++m) {
+        const int col = 8 * (m >> 1) + c2;   // q row of elements 2m, 2m+1
+        const int key = key0 + 8 * (m & 1);
+        const float2 ls = *reinterpret_cast<const float2*>(lse_s + col);
+        const float2 dl = *reinterpret_cast<const float2*>(dl_s + col);
+        float pa = exp2f(st[2 * m] * scale_log2 - ls.x * kLog2e);
+        float pb = exp2f(st[2 * m + 1] * scale_log2 - ls.y * kLog2e);
+        if (edge) {
+          const int qa = q0 + col;
+          if (qa >= sq || key >= sk || (causal && qa < key)) pa = 0.f;
+          if (qa + 1 >= sq || key >= sk || (causal && qa + 1 < key))
+            pb = 0.f;
+        }
+        pp[m] = pack_bf16(pa, pb);
+        pds[m] = pack_bf16(pa * (dpt[2 * m] - dl.x) * scale,
+                           pb * (dpt[2 * m + 1] - dl.y) * scale);
+      }
+
+      // dS^T to shared memory for dQ = dS K: key rows (this warpgroup's 64
+      // of the buffer's 128), q along the 128-byte rows in BQ / 64 panels,
+      // the 128-byte swizzle written by hand; two buffers, so one barrier a
+      // q tile orders both consumers' writes and reads.
+      uint8_t* ds_buf = gbase + L::kDS + (it & 1) * L::kDSBytes;
+#pragma unroll
+      for (int m = 0; m < BQ / 4; ++m) {
+        const int col = 8 * (m >> 1) + c2;
+        const int row = 64 * w + r0 + 8 * (m & 1);
+        const int chunk = ((col >> 3) & 7) ^ (row & 7);
+        *reinterpret_cast<uint32_t*>(ds_buf + (col >> 6) * L::kPanelDS +
+                                     row * 128 + chunk * 16 + (col & 7) * 2) =
+            pds[m];
+      }
+      fence_proxy_async();
+      named_barrier(1, 256);
+
+      // dV += P^T dO and dK += dS^T Q (16 q rows a step, dO and Q MN-major),
+      // then this consumer's dq block = dS K (16 keys a step, dS and K
+      // MN-major).
+      float dq_acc[32];
+      pin(dk_acc);
+      pin(dv_acc);
+      pin(pp);
+      pin(pds);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+        wgmma_rs(dv_acc, pp + 4 * kk,
+                 smem_desc(sDOs + kk * 16 * 128, L::kPanelQ, 1024));
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+        wgmma_rs(dk_acc, pds + 4 * kk,
+                 smem_desc(sQs + kk * 16 * 128, L::kPanelQ, 1024));
+      const uint32_t sDSb = sDS + (it & 1) * L::kDSBytes + qpan * L::kPanelDS;
+#pragma unroll
+      for (int kk = 0; kk < kBwdBK / 16; ++kk)
+        wgmma_ss<1, 1>(dq_acc,
+                       smem_desc(sDSb + kk * 16 * 128, L::kPanelDS, 1024),
+                       smem_desc(sK + dpan * L::kPanelK + kk * 16 * 128,
+                                 L::kPanelK, 1024),
+                       kk > 0);
+      wg_commit();
+      wg_wait_all();
+      pin(dk_acc);
+      pin(dv_acc);
+      pin(dq_acc);
+      if (t == 0) mbar_arrive(bar_empty + 8 * s);   // this stage is read
+
+      // The tile's dq block, f32, into workspace slot kt.
+      const int qrow = q0 + qpan * 64 + r0;
+      float* dst = dq_ws + kt * ws_slot + ((int64_t)bi * h + hi) * sq * d;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = dpan * 64 + 8 * j + c2;
+        if (col >= d) continue;
+        if (qrow < sq)
+          *reinterpret_cast<float2*>(dst + (int64_t)qrow * d + col) =
+              make_float2(dq_acc[4 * j], dq_acc[4 * j + 1]);
+        if (qrow + 8 < sq)
+          *reinterpret_cast<float2*>(dst + (int64_t)(qrow + 8) * d + col) =
+              make_float2(dq_acc[4 * j + 2], dq_acc[4 * j + 3]);
+      }
+    }
+
+    __nv_bfloat16* dkb = dk + bi * dk_sb + kvh * dk_sh;
+    __nv_bfloat16* dvb = dv + bi * dv_sb + kvh * dv_sh;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int col = 8 * j + c2;
+      if (col >= d) continue;
+      if (key0 < sk) {
+        *reinterpret_cast<__nv_bfloat162*>(dkb + key0 * dk_ss + col) =
+            __floats2bfloat162_rn(dk_acc[4 * j], dk_acc[4 * j + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(dvb + key0 * dv_ss + col) =
+            __floats2bfloat162_rn(dv_acc[4 * j], dv_acc[4 * j + 1]);
+      }
+      if (key0 + 8 < sk) {
+        *reinterpret_cast<__nv_bfloat162*>(dkb + (key0 + 8) * dk_ss + col) =
+            __floats2bfloat162_rn(dk_acc[4 * j + 2], dk_acc[4 * j + 3]);
+        *reinterpret_cast<__nv_bfloat162*>(dvb + (key0 + 8) * dv_ss + col) =
+            __floats2bfloat162_rn(dv_acc[4 * j + 2], dv_acc[4 * j + 3]);
+      }
+    }
+  }
+}
+
+// ================================================== the ordered dq sum
+
+constexpr int kSumThreads = 256;
+
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+  uint2 u;
+  u.x = pack_bf16(v.x, v.y);
+  u.y = pack_bf16(v.z, v.w);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
+// dq = the sum over k tiles kt = 0 .. last visible of ws[kt], in
+// increasing kt, in dq's dtype and strides. ws: [n_slots, b, h, sq, d];
+// slot kt holds the fused kernel's contribution of key tile kt (block_k
+// keys) for every q tile of block_q rows at or below the diagonal, which
+// is exactly kt <= (qt * block_q + block_q - 1) / block_k under the causal
+// mask. Grid (b * h, row blocks): four consecutive elements of one
+// (b, h)'s [sq, d] a thread, indexed in 32 bits.
+template <typename T>
+__global__ void __launch_bounds__(kSumThreads) flash_bwd_dq_sum_kernel(
+    const float* __restrict__ ws, T* __restrict__ dq, int64_t slot,
+    int n_slots, int h, int sq, int d, int64_t dq_sb, int64_t dq_sh,
+    int64_t dq_ss, int block_q, int block_k, int causal) {
+  const int e = (blockIdx.y * kSumThreads + threadIdx.x) * 4;
+  if (e >= sq * d) return;
+  const int row = e / d, c = e - row * d;
+  const int bi = blockIdx.x / h, hi = blockIdx.x - bi * h;
+  int last = n_slots - 1;
+  if (causal)
+    last = min(last, ((row / block_q) * block_q + block_q - 1) / block_k);
+  const float* src = ws + (int64_t)blockIdx.x * sq * d + e;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int kt = 0; kt <= last; ++kt) {
+    const float4 x = __ldg(reinterpret_cast<const float4*>(src + kt * slot));
+    acc.x += x.x;
+    acc.y += x.y;
+    acc.z += x.z;
+    acc.w += x.w;
+  }
+  store4(dq + bi * dq_sb + hi * dq_sh + row * dq_ss + c, acc);
+}
+
+// ------------------------------------------------------------- launch
+
+// kind: 0 = fused (float32 only), 1 = dq, 2 = dk/dv.
 template <typename T, int D>
-int launch(int kind, const Args& a, int b, cudaStream_t stream) {
+int launch_simt(int kind, const Args& a, int b, cudaStream_t stream) {
   const int hkv = a.h / a.group;
   const int nq = (a.sq + kB - 1) / kB, nk = (a.sk + kB - 1) / kB;
   if (kind == 1) {
@@ -423,8 +775,10 @@ int launch(int kind, const Args& a, int b, cudaStream_t stream) {
     kern<<<dim3(nq, a.h, b), kThreads, smem, stream>>>(a);
     return (int)cudaGetLastError();
   }
-  auto kern = kind == 0 ? flash_bwd_kv_kernel<T, D, true>
-                        : flash_bwd_kv_kernel<T, D, false>;
+  void (*kern)(Args) = flash_bwd_kv_kernel<T, D, false>;
+  if constexpr (std::is_same<T, float>::value) {
+    if (kind == 0) kern = flash_bwd_kv_kernel<float, D, true>;
+  }
   constexpr int smem = (int)sizeof(float) * smem_floats_kv<D>();
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -436,26 +790,25 @@ int launch(int kind, const Args& a, int b, cudaStream_t stream) {
 template <typename T>
 int launch_d(int kind, int d, const Args& a, int b, cudaStream_t s) {
   switch (d) {
-    case 16: return launch<T, 16>(kind, a, b, s);
-    case 32: return launch<T, 32>(kind, a, b, s);
-    case 48: return launch<T, 48>(kind, a, b, s);
-    case 64: return launch<T, 64>(kind, a, b, s);
-    case 80: return launch<T, 80>(kind, a, b, s);
-    case 96: return launch<T, 96>(kind, a, b, s);
-    case 112: return launch<T, 112>(kind, a, b, s);
-    case 128: return launch<T, 128>(kind, a, b, s);
+    case 16: return launch_simt<T, 16>(kind, a, b, s);
+    case 32: return launch_simt<T, 32>(kind, a, b, s);
+    case 48: return launch_simt<T, 48>(kind, a, b, s);
+    case 64: return launch_simt<T, 64>(kind, a, b, s);
+    case 80: return launch_simt<T, 80>(kind, a, b, s);
+    case 96: return launch_simt<T, 96>(kind, a, b, s);
+    case 112: return launch_simt<T, 112>(kind, a, b, s);
+    case 128: return launch_simt<T, 128>(kind, a, b, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-int launch_any(int kind, int dtype, int d, const void* q, const void* k,
-               const void* v, const void* dout, const float* lse,
-               const float* delta, void* dq, void* dk, void* dv, int b,
-               int h, int group, int sq, int sk, const int64_t* st,
-               int causal, float scale, void* stream) {
+Args make_args(const void* q, const void* k, const void* v, const void* dout,
+               const float* lse, const float* delta, void* dq, void* dk,
+               void* dv, int h, int group, int sq, int sk, const int64_t* st,
+               int causal, float scale) {
   Args a;
   a.q = q; a.k = k; a.v = v; a.dout = dout; a.lse = lse; a.delta = delta;
-  a.dq = dq; a.dk = dk; a.dv = dv;
+  a.dq = dq; a.dk = dk; a.dv = dv; a.dq_ws = nullptr; a.ws_slot = 0;
   Str* strs[7] = {&a.sq_, &a.sk_, &a.sv_, &a.sdo_, &a.sdq_, &a.sdk_, &a.sdv_};
   for (int i = 0; i < 7; ++i) {
     strs[i]->b = st[3 * i];
@@ -464,10 +817,97 @@ int launch_any(int kind, int dtype, int d, const void* q, const void* k,
   }
   a.h = h; a.group = group; a.sq = sq; a.sk = sk; a.causal = causal;
   a.scale = scale;
+  return a;
+}
+
+// The split kernels: kind 1 (dq) or 2 (dk/dv).
+int launch_split(int kind, int dtype, int d, const void* q, const void* k,
+                 const void* v, const void* dout, const float* lse,
+                 const float* delta, void* dq, void* dk, void* dv, int b,
+                 int h, int group, int sq, int sk, const int64_t* st,
+                 int causal, float scale, void* stream) {
+  const Args a = make_args(q, k, v, dout, lse, delta, dq, dk, dv, h, group,
+                           sq, sk, st, causal, scale);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_d<float>(kind, d, a, b, s);
   if (dtype == 1) return launch_d<__nv_bfloat16>(kind, d, a, b, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The geometry array of the fused route (ops/flash.py `bwd_geometry`),
+// int64:
+//   [0:9)   DP, block_q, block_k, grid x, y, z, batch, q tiles, slots
+//   [9:30)  element strides (batch, head, seq) of q, k, v, do, dq, dk, dv
+//   [30:74) for q, k, v, do: dims (d, heads, seq, batch), byte strides
+//           (heads, seq, batch), box (d, heads, seq, batch); zeros for f32
+constexpr int kBwdGeomLen = 74;
+constexpr int kBwdStrideAt = 9;
+constexpr int kBwdMapAt = 30;
+
+template <int DP>
+int launch_wgmma(const void* q, const void* k, const void* v,
+                 const void* dout, const float* rows, float* ws, void* dk,
+                 void* dv, int h, int group, int sq, int sk, int d,
+                 const int64_t* g, int causal, float scale,
+                 cudaStream_t stream) {
+  CUtensorMap maps[4];
+  const void* ptrs[4] = {q, k, v, dout};
+  for (int i = 0; i < 4; ++i) {
+    const int err = encode_map(&maps[i], ptrs[i], g + kBwdMapAt + i * kMapLen);
+    if (err) return err;
+  }
+  auto kern = flash_bwd_wgmma_kernel<DP>;
+  constexpr int smem = BwdLayout<DP>::kSmem;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int64_t* st = g + kBwdStrideAt;
+  const int64_t slot = g[6] * h * (int64_t)sq * d;
+  dim3 grid((unsigned)g[3], (unsigned)g[4], (unsigned)g[5]);
+  kern<<<grid, kBwdThreads, smem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], rows, ws,
+      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), h,
+      group, sq, sk, d, (int)g[7], slot, st[15], st[16], st[17], st[18],
+      st[19], st[20], causal, scale);
+  return (int)cudaGetLastError();
+}
+
+int launch_fused_bf16(int d, const void* q, const void* k, const void* v,
+                      const void* dout, const float* rows, float* ws,
+                      void* dk, void* dv, int h, int group, int sq, int sk,
+                      const int64_t* g, int causal, float scale,
+                      cudaStream_t s) {
+  const int dp = d <= 64 ? 64 : 128;
+  if (d % 16 || d < 16 || d > 128 || g[0] != dp || g[1] != 8192 / dp ||
+      g[2] != kBwdBK || rows == nullptr)
+    return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < 4; ++i)
+    if (!panel_box(g + kBwdMapAt + i * kMapLen,
+                   i == 1 || i == 2 ? kBwdBK : (int)g[1]))
+      return (int)cudaErrorInvalidValue;
+  if (dp == 64)
+    return launch_wgmma<64>(q, k, v, dout, rows, ws, dk, dv, h, group, sq, sk,
+                            d, g, causal, scale, s);
+  return launch_wgmma<128>(q, k, v, dout, rows, ws, dk, dv, h, group, sq, sk,
+                           d, g, causal, scale, s);
+}
+
+int launch_dq_sum(int dtype, const float* ws, void* dq, int h, int sq, int d,
+                  const int64_t* g, int causal, cudaStream_t s) {
+  const int64_t* st = g + kBwdStrideAt;
+  const int64_t slot = g[6] * h * (int64_t)sq * d;
+  const dim3 blocks((unsigned)(g[6] * h),
+                    (sq * d / 4 + kSumThreads - 1) / kSumThreads);
+  const int n_slots = (int)g[8], bq = (int)g[1], bk = (int)g[2];
+  if (dtype == 0)
+    flash_bwd_dq_sum_kernel<float><<<blocks, kSumThreads, 0, s>>>(
+        ws, static_cast<float*>(dq), slot, n_slots, h, sq, d, st[12], st[13],
+        st[14], bq, bk, causal);
+  else
+    flash_bwd_dq_sum_kernel<__nv_bfloat16><<<blocks, kSumThreads, 0, s>>>(
+        ws, static_cast<__nv_bfloat16*>(dq), slot, n_slots, h, sq, d, st[12],
+        st[13], st[14], bq, bk, causal);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -477,31 +917,51 @@ extern "C" {
 // Common arguments: dtype 0 = float32, 1 = bfloat16; d in {16, 32, ...,
 // 128}; q and dout [.., sq, h, ..], k and v [.., sk, h / group, ..] in
 // any batch/head/sequence strides with a unit-stride head dim; lse and
-// delta [b, h, sq] float32. strides (elements), 21 of them: (batch,
-// head, seq) of q, k, v, dout, dq, dk, dv. Each returns a cudaError_t
-// (0 = launched).
+// delta [b, h, sq] float32. Each returns 0 when launched, else a
+// cudaError_t, or kEncodeError plus the CUresult of a tensor map that
+// failed to encode (flash_bwd_error_string).
 
-// Fused: dq is a ZEROED float32 buffer, accumulated with atomicAdd; dk
-// and dv are in the input dtype.
+// Fused: dq, dk and dv in the input dtype. geom: the kBwdGeomLen values
+// of ops/flash.py `bwd_geometry`; dq_ws: the [slots, b, h, sq, d] f32
+// workspace (every slot that is read is written first); rows (bf16
+// only): [b, h, q tiles, 2, block_q] f32, each q tile's LSE then delta,
+// zero past sq. Launches the route's kernel, then the ordered dq sum.
 int flash_bwd_fused_launch(int dtype, int d, const void* q, const void* k,
                            const void* v, const void* dout, const float* lse,
-                           const float* delta, float* dq, void* dk, void* dv,
-                           int b, int h, int group, int sq, int sk,
-                           const int64_t* strides, int causal, float scale,
-                           void* stream) {
-  return launch_any(0, dtype, d, q, k, v, dout, lse, delta, dq, dk, dv, b, h,
-                    group, sq, sk, strides, causal, scale, stream);
+                           const float* delta, const float* rows,
+                           float* dq_ws, void* dq, void* dk, void* dv, int h,
+                           int group, int sq, int sk, const int64_t* geom,
+                           int causal, float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int err;
+  if (dtype == 0) {
+    if (geom[0] != d || geom[1] != kB || geom[2] != kB)
+      return (int)cudaErrorInvalidValue;
+    Args a = make_args(q, k, v, dout, lse, delta, nullptr, dk, dv, h, group,
+                       sq, sk, geom + kBwdStrideAt, causal, scale);
+    a.dq_ws = dq_ws;
+    a.ws_slot = geom[6] * h * (int64_t)sq * d;
+    err = launch_d<float>(0, d, a, (int)geom[6], s);
+  } else if (dtype == 1) {
+    err = launch_fused_bf16(d, q, k, v, dout, rows, dq_ws, dk, dv, h, group,
+                            sq, sk, geom, causal, scale, s);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (err) return err;
+  return launch_dq_sum(dtype, dq_ws, dq, h, sq, d, geom, causal, s);
 }
 
-// Split, dq only (input dtype).
+// Split, dq only (input dtype). strides (elements), 21 of them: (batch,
+// head, seq) of q, k, v, dout, dq, dk, dv.
 int flash_bwd_dq_launch(int dtype, int d, const void* q, const void* k,
                         const void* v, const void* dout, const float* lse,
                         const float* delta, void* dq, int b, int h,
                         int group, int sq, int sk, const int64_t* strides,
                         int causal, float scale, void* stream) {
-  return launch_any(1, dtype, d, q, k, v, dout, lse, delta, dq, nullptr,
-                    nullptr, b, h, group, sq, sk, strides, causal, scale,
-                    stream);
+  return launch_split(1, dtype, d, q, k, v, dout, lse, delta, dq, nullptr,
+                      nullptr, b, h, group, sq, sk, strides, causal, scale,
+                      stream);
 }
 
 // Split, dk and dv only (input dtype).
@@ -511,12 +971,19 @@ int flash_bwd_dkv_launch(int dtype, int d, const void* q, const void* k,
                          int h, int group, int sq, int sk,
                          const int64_t* strides, int causal, float scale,
                          void* stream) {
-  return launch_any(2, dtype, d, q, k, v, dout, lse, delta, nullptr, dk, dv,
-                    b, h, group, sq, sk, strides, causal, scale, stream);
+  return launch_split(2, dtype, d, q, k, v, dout, lse, delta, nullptr, dk,
+                      dv, b, h, group, sq, sk, strides, causal, scale,
+                      stream);
 }
 
-const char* flash_bwd_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
+int flash_bwd_geom_len() { return kBwdGeomLen; }
+
+// Dynamic shared memory of the bf16 fused kernel at padded head dim dp
+// (64 or 128).
+int flash_bwd_smem_bytes(int dp) {
+  return dp <= 64 ? BwdLayout<64>::kSmem : BwdLayout<128>::kSmem;
 }
+
+const char* flash_bwd_error_string(int err) { return error_text(err); }
 
 }  // extern "C"

@@ -55,8 +55,10 @@
 //     the LSE is converted back to the natural log: m·ln 2 + log(l).
 //   The launch geometry (DP, tiles, grid, each tensor map's dims, byte
 //   strides and box) comes from ops/flash.py `fwd_geometry`; the maps
-//   are encoded here with cuTensorMapEncodeTiled, obtained through
-//   cudaGetDriverEntryPoint so the library does not link libcuda.
+//   are encoded on the host by hopper.cuh's encode_map
+//   (cuTensorMapEncodeTiled, obtained through cudaGetDriverEntryPoint so
+//   the library does not link libcuda). The TMA, mbarrier and wgmma
+//   helpers are hopper.cuh's, shared with the backward.
 //
 // float32: flash_fwd_kernel<float, D>, the CUDA-core kernel (wgmma has
 //   no f32 inputs, and TF32 would not hold the f32 tolerances). One CTA
@@ -68,12 +70,9 @@
 //   cores' f32 FMA rate (67 TFLOP/s at best), far below the tensor
 //   cores.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
-#include <stdio.h>
+
+#include "hopper.cuh"   // TMA, mbarrier, wgmma, tensor-map encoding
 
 namespace {
 
@@ -278,9 +277,6 @@ constexpr int kWgBQ = 128;        // query rows of a CTA (2 x 64)
 constexpr int kWgBK = 128;        // keys of a K/V tile
 constexpr int kWgStages = 2;      // K/V ring depth
 constexpr int kWgThreads = 384;   // producer + two consumer warpgroups
-constexpr int kPanelCols = 64;    // TMA box inner dim: 128 bytes of bf16
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
 
 template <int DP>
 struct WgLayout {
@@ -297,185 +293,6 @@ struct WgLayout {
   // the tiles to the 128-byte swizzle's 1024-byte period.
   static constexpr int kSmem = kBars + 8 * (2 * kWgStages + 1) + 1024;
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::
-                   "r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-
-// Wait until the phase of `bar` with this parity has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One box of a 4-D tensor map into shared memory, completing on `bar`.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// A wgmma shared-memory matrix descriptor, 128-byte swizzle. Offsets in
-// bytes: `lbo` is unused for K-major operands and is the stride between
-// 64-column panels for MN-major ones; `sbo` is the stride between groups
-// of 8 rows (8 x 128 bytes).
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-// Keep the compiler from moving accumulator reads or writes across the
-// asynchronous wgmma boundary.
-template <int N>
-__device__ __forceinline__ void pin(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void pin(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
-// D[64 x 128] (+)= A[64 x 16] * B[16 x 128], A and B from shared memory,
-// both K-major (128-byte swizzle); scale_d 0 overwrites D.
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
-                                              uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// D[64 x N] += A[64 x 16] * B[16 x N], A from registers (four bf16x2 a
-// thread, in the accumulator's layout), B from shared memory MN-major
-// (128-byte swizzle, imm-trans-b 1).
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a,
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t* a,
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
 
 // Scores of one K/V tile in the log2 domain, masked where a key is past
 // sk or (causal) after the query row; the running row maxima of the
@@ -586,7 +403,7 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_fwd_wgmma_kernel(
             sQ + (kk / 4) * L::kPanelQ + row_off * 128 + col, 16, 1024);
         const uint64_t db = smem_desc(
             sK + s * L::kKVBytes + (kk / 4) * L::kPanelKV + col, 16, 1024);
-        wgmma_ss_n128(sc, da, db, kk > 0);
+        wgmma_ss<0, 0>(sc, da, db, kk > 0);
       }
       wg_commit();
       wg_wait_all();
@@ -621,8 +438,7 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_fwd_wgmma_kernel(
           ls1 += pa + pb;
         else
           ls0 += pa + pb;
-        const __nv_bfloat162 h2 = __floats2bfloat162_rn(pa, pb);
-        pk[i / 2] = *reinterpret_cast<const uint32_t*>(&h2);
+        pk[i / 2] = pack_bf16(pa, pb);
       }
       l0 = l0 * corr0 + ls0;   // per-thread partial sums, reduced at the end
       l1 = l1 * corr1 + ls1;
@@ -680,47 +496,7 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_fwd_wgmma_kernel(
 //   [18:51) for q, k, v: dims (d, heads, seq, batch), byte strides
 //           (heads, seq, batch), box (d, heads, seq, batch)
 constexpr int kGeomLen = 51;
-constexpr int kMapAt = 18, kMapLen = 11;
-
-// Errors of cuTensorMapEncodeTiled come back as kEncodeError + CUresult.
-constexpr int kEncodeError = 1 << 20;
-constexpr int kNoEntryPoint = 2 << 20;
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-int encode_map(CUtensorMap* map, const void* ptr, const int64_t* g) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return kNoEntryPoint;
-  cuuint64_t dims[4], strides[3];
-  cuuint32_t box[4], unit[4] = {1, 1, 1, 1};
-  for (int i = 0; i < 4; ++i) dims[i] = (cuuint64_t)g[i];
-  for (int i = 0; i < 3; ++i) strides[i] = (cuuint64_t)g[4 + i];
-  for (int i = 0; i < 4; ++i) box[i] = (cuuint32_t)g[7 + i];
-  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                  const_cast<void*>(ptr), dims, strides, box, unit,
-                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                  CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : kEncodeError + (int)r;
-}
+constexpr int kMapAt = 18;
 
 template <int DP>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o,
@@ -788,12 +564,9 @@ int launch_bf16(int d, const void* q, const void* k, const void* v, void* o,
   if (d % 16 || d < 16 || d > 128 || g[0] != (d <= 64 ? 64 : 128) ||
       g[1] != kWgBQ || g[2] != kWgBK)
     return (int)cudaErrorInvalidValue;
-  for (int i = 0; i < 3; ++i) {
-    const int64_t* box = g + kMapAt + i * kMapLen + 7;
-    const int rows = i == 0 ? kWgBQ : kWgBK;
-    if (box[0] != kPanelCols || box[1] != 1 || box[2] != rows || box[3] != 1)
+  for (int i = 0; i < 3; ++i)
+    if (!panel_box(g + kMapAt + i * kMapLen, i == 0 ? kWgBQ : kWgBK))
       return (int)cudaErrorInvalidValue;
-  }
   if (g[0] == 64)
     return launch_wgmma<64>(q, k, v, o, lse, group, sq, sk, d, g, causal,
                             scale, s);
@@ -842,15 +615,6 @@ int flash_fwd_smem_bytes(int dtype, int d) {
   return simt_smem_bytes(d);
 }
 
-const char* flash_fwd_error_string(int err) {
-  static char buf[96];
-  if (err >= kNoEntryPoint) return "cuTensorMapEncodeTiled not found";
-  if (err >= kEncodeError) {
-    snprintf(buf, sizeof buf, "cuTensorMapEncodeTiled failed, CUresult %d",
-             err - kEncodeError);
-    return buf;
-  }
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
+const char* flash_fwd_error_string(int err) { return error_text(err); }
 
 }  // extern "C"

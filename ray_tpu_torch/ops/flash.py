@@ -11,9 +11,12 @@ Four CUDA entry points, each a wrapper with its own launch counter:
     route; counter ``lse_launches``. Both forward routes take the
     Hopper kernel (TMA and wgmma) for bf16 and the CUDA-core kernel for
     f32; ``fwd_geometry`` computes either launch's geometry;
-  * ``flash_attention_bwd_fused`` — dq, dk and dv in one kernel
-    (``_bwd_fused_kernel``), ops/csrc/flash_bwd.cu; counter
-    ``bwd_fused_launches``;
+  * ``flash_attention_bwd_fused`` — dq, dk and dv in one pass
+    (``_bwd_fused_kernel``), ops/csrc/flash_bwd.cu: the Hopper kernel
+    (TMA and wgmma) for bf16, the CUDA-core kernel for f32, each writing
+    per-key-tile dq contributions that a second kernel sums in a fixed
+    order; ``bwd_geometry`` computes the launch geometry; counter
+    ``bwd_fused_launches`` (one a call, for the pair);
   * ``flash_attention_bwd_split`` — the long-sequence path, one dq kernel
     (``_bwd_dq_kernel``) and one dk/dv kernel (``_bwd_dkv_kernel``);
     counters ``bwd_dq_launches`` and ``bwd_dkv_launches``.
@@ -108,14 +111,23 @@ def _bwd_lib():
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         head = [i, i, p, p, p, p, p, p]
         tail = [i, i, i, i, i, p, i, f, p]
-        lib.flash_bwd_fused_launch.argtypes = head + [p, p, p] + tail
+        lib.flash_bwd_fused_launch.argtypes = head + [p, p, p, p, p] + [
+            i, i, i, i, p, i, f, p]
         lib.flash_bwd_dq_launch.argtypes = head + [p] + tail
         lib.flash_bwd_dkv_launch.argtypes = head + [p, p] + tail
         for fn in (lib.flash_bwd_fused_launch, lib.flash_bwd_dq_launch,
                    lib.flash_bwd_dkv_launch):
             fn.restype = i
+        lib.flash_bwd_geom_len.argtypes = []
+        lib.flash_bwd_geom_len.restype = i
+        lib.flash_bwd_smem_bytes.argtypes = [i]
+        lib.flash_bwd_smem_bytes.restype = i
         lib.flash_bwd_error_string.argtypes = [i]
         lib.flash_bwd_error_string.restype = ctypes.c_char_p
+        if lib.flash_bwd_geom_len() != BWD_GEOM_LEN:
+            raise RuntimeError("ray_tpu_torch: flash_bwd.cu reads "
+                               f"{lib.flash_bwd_geom_len()} geometry values, "
+                               f"ops/flash.py writes {BWD_GEOM_LEN}")
     return lib
 
 
@@ -192,18 +204,28 @@ def fwd_geometry(q, k, v, out, s_ax: int, h_ax: int) -> FwdGeometry:
     if q.dtype == torch.float32:
         return FwdGeometry(d, _F32_BLOCK, _F32_BLOCK,
                            (-(-sq // _F32_BLOCK), h, b), strides, ())
-    isz = q.element_size()
-    maps = tuple(
-        TensorMapGeometry(
-            dims=(d, t.shape[h_ax], t.shape[s_ax], t.shape[0]),
-            strides=(t.stride(h_ax) * isz, t.stride(s_ax) * isz,
-                     t.stride(0) * isz),
-            box=(_BOX_COLS, 1, rows, 1))
-        for t, rows in ((q, _WG_BLOCK_Q), (k, _WG_BLOCK_K),
-                        (v, _WG_BLOCK_K)))
-    dp = -(-d // _BOX_COLS) * _BOX_COLS
-    return FwdGeometry(dp, _WG_BLOCK_Q, _WG_BLOCK_K,
+    maps = _tensor_maps(((q, _WG_BLOCK_Q), (k, _WG_BLOCK_K),
+                         (v, _WG_BLOCK_K)), s_ax, h_ax)
+    return FwdGeometry(_padded_head_dim(d), _WG_BLOCK_Q, _WG_BLOCK_K,
                        (h, b, -(-sq // _WG_BLOCK_Q)), strides, maps)
+
+
+def _padded_head_dim(d: int) -> int:
+    """The head dim of the bf16 kernels' tiles: whole 64-column boxes."""
+    return -(-d // _BOX_COLS) * _BOX_COLS
+
+
+def _tensor_maps(tensors_rows, s_ax: int, h_ax: int):
+    """One TMA tensor map per (tensor, box rows): the (d, heads, seq,
+    batch) view with the tensor's own byte strides, boxes of one
+    64-column panel of ``rows`` rows of one head and batch."""
+    return tuple(
+        TensorMapGeometry(
+            dims=(t.shape[-1], t.shape[h_ax], t.shape[s_ax], t.shape[0]),
+            strides=tuple(t.stride(ax) * t.element_size()
+                          for ax in (h_ax, s_ax, 0)),
+            box=(_BOX_COLS, 1, rows, 1))
+        for t, rows in tensors_rows)
 
 
 def flash_attention_fwd(q, k, v, *, causal: bool = True,
@@ -339,6 +361,97 @@ def flash_attention_fwd_lse_reference(q, k, v, *, causal: bool = True,
 
 # ------------------------------------------------------------ backward
 
+# The fused route's tiles (ops/csrc/flash_bwd.cu). bf16: key tiles of 128
+# (64 for each consumer warpgroup) and q tiles of 8192 / DP rows (128 at
+# DP 64, 64 at DP 128), the head dim padded as the forward's. f32: the
+# CUDA-core kernel's 64 x 64 tiles.
+_BWD_BLOCK_K = 128
+# Values in the int64 geometry array flash_bwd_fused_launch reads.
+BWD_GEOM_LEN = 74
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdGeometry:
+    """The launch geometry of the fused backward for one call. Each CTA
+    owns one key tile; its dq contribution for every q tile it visits
+    goes to slot ``kt`` of an f32 workspace [slots, b, h, sq, d], which
+    the sum kernel reduces in increasing ``kt``."""
+    head_dim_padded: int
+    block_q: int
+    block_k: int
+    grid: tuple[int, int, int]
+    batch: int
+    q_tiles: int
+    slots: int                         # key tiles: dq workspace slots
+    strides: tuple[int, ...]           # elements: (b, h, s) of q, k, v,
+                                       # do, dq, dk, dv
+    maps: tuple[TensorMapGeometry, ...]   # q, k, v, do (bf16), () for f32
+
+    def workspace_shape(self, h: int, sq: int, d: int) -> tuple:
+        return (self.slots, self.batch, h, sq, d)
+
+    def first_q_tile(self, kt: int, causal: bool) -> int:
+        """The first q tile key tile ``kt`` is visible to (the
+        reference's ``lower``); the CTA walks from there down."""
+        return kt * self.block_k // self.block_q if causal else 0
+
+    def last_slot(self, qt: int, causal: bool) -> int:
+        """The last key tile q tile ``qt`` sees: the sum kernel adds the
+        slots 0 .. last_slot of its rows, in that order."""
+        if not causal:
+            return self.slots - 1
+        return min(self.slots - 1,
+                   (qt * self.block_q + self.block_q - 1) // self.block_k)
+
+    def to_array(self) -> list:
+        """The int64 values flash_bwd_fused_launch reads."""
+        vals = [self.head_dim_padded, self.block_q, self.block_k,
+                *self.grid, self.batch, self.q_tiles, self.slots,
+                *self.strides]
+        for m in self.maps:
+            vals += [*m.dims, *m.strides, *m.box]
+        return vals + [0] * (BWD_GEOM_LEN - len(vals))
+
+
+def bwd_geometry(q, k, v, do, dq, dk, dv, s_ax: int,
+                 h_ax: int) -> BwdGeometry:
+    """Launch geometry of the fused backward for these tensors (only
+    their dtype, shapes and strides are read: no device is touched).
+
+    bf16: the Hopper kernel. Grid (kv heads, b, key tiles): the key tile
+    is the slowest axis, so the first tiles, with the longest causal
+    walks, start first. Q, K, V and dO each get a tensor map over (d,
+    heads, seq, batch) with their own byte strides; boxes of 64 columns
+    by one tile of rows (block_q for Q and dO, 128 for K and V). f32: the
+    CUDA-core kernel, 64 x 64 tiles, grid (key tiles, kv heads, b), no
+    tensor maps."""
+    b, sq, h, d = q.shape[0], q.shape[s_ax], q.shape[h_ax], q.shape[-1]
+    sk, hk = k.shape[s_ax], k.shape[h_ax]
+    strides = tuple(st for t in (q, k, v, do, dq, dk, dv)
+                    for st in (t.stride(0), t.stride(h_ax), t.stride(s_ax)))
+    if q.dtype == torch.float32:
+        nk = -(-sk // _F32_BLOCK)
+        return BwdGeometry(d, _F32_BLOCK, _F32_BLOCK, (nk, hk, b), b,
+                           -(-sq // _F32_BLOCK), nk, strides, ())
+    dp = _padded_head_dim(d)
+    bq = 8192 // dp
+    nk = -(-sk // _BWD_BLOCK_K)
+    maps = _tensor_maps(((q, bq), (k, _BWD_BLOCK_K), (v, _BWD_BLOCK_K),
+                         (do, bq)), s_ax, h_ax)
+    return BwdGeometry(dp, bq, _BWD_BLOCK_K, (hk, b, nk), b, -(-sq // bq),
+                       nk, strides, maps)
+
+
+def row_stats(lse, delta, block_q: int):
+    """The bf16 kernel's per-q-tile rows: [b, h, q tiles, 2, block_q]
+    f32, each tile's LSE then Δ, zero past sq (one bulk copy a tile)."""
+    b, h, sq = lse.shape
+    pad = -sq % block_q
+    tiles = [torch.nn.functional.pad(t, (0, pad)).view(b, h, -1, block_q)
+             for t in (lse, delta)]
+    return torch.stack(tiles, dim=3)
+
+
 def _delta(o, do, h_ax):
     """Δ = Σ_d dO·O in f32, [b, h, sq] (flash.py:384-387)."""
     dl = (do.float() * o.float()).sum(-1)
@@ -385,31 +498,38 @@ def _launch_bwd(q, k, v, o, lse, do, causal, s_ax, h_ax, fused):
         raise ValueError(f"lse must be float32 [{b}, {h}, {sq}]")
     lse = lse.contiguous()
     delta = _delta(o, do, h_ax)
-    dk = torch.empty_like(k, memory_format=torch.contiguous_format)
-    dv = torch.empty_like(v, memory_format=torch.contiguous_format)
-    # The fused kernel adds dq with f32 atomics into a zeroed buffer,
-    # zeroed here on the stream the kernel runs on.
-    dq = (torch.zeros(q.shape, dtype=torch.float32, device=dev) if fused
-          else torch.empty_like(q, memory_format=torch.contiguous_format))
+    dq, dk, dv = (torch.empty_like(t, memory_format=torch.contiguous_format)
+                  for t in (q, k, v))
+    lib = _bwd_lib()
+    head = (_DTYPES[dt], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr())
+    group, scale = h // k.shape[h_ax], float(d ** -0.5)
+    if fused:
+        # The kernel writes every workspace slot the sum kernel reads, so
+        # the workspace is not zeroed.
+        geom = bwd_geometry(q, k, v, do, dq, dk, dv, s_ax, h_ax)
+        ws = torch.empty(geom.workspace_shape(h, sq, d), dtype=torch.float32,
+                         device=dev)
+        rows = (row_stats(lse, delta, geom.block_q)
+                if dt == torch.bfloat16 else None)
+        arr = (ctypes.c_int64 * BWD_GEOM_LEN)(*geom.to_array())
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = lib.flash_bwd_fused_launch(
+                *head, None if rows is None else rows.data_ptr(),
+                ws.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                h, group, sq, sk, arr, int(causal), scale, stream)
+        _build.check(err, "flash_bwd_fused_launch",
+                     lib.flash_bwd_error_string)
+        bwd_fused_launches += 1
+        return dq, dk, dv
     strides = []
     for t in (q, k, v, do, dq, dk, dv):
         strides += [t.stride(0), t.stride(h_ax), t.stride(s_ax)]
     st = (ctypes.c_int64 * 21)(*strides)
-    lib = _bwd_lib()
-    head = (_DTYPES[dt], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            do.data_ptr(), lse.data_ptr(), delta.data_ptr())
-    tail = (b, h, h // k.shape[h_ax], sq, sk, st, int(causal),
-            float(d ** -0.5))
+    tail = (b, h, group, sq, sk, st, int(causal), scale)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if fused:
-            err = lib.flash_bwd_fused_launch(
-                *head, dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), *tail,
-                stream)
-            _build.check(err, "flash_bwd_fused_launch",
-                         lib.flash_bwd_error_string)
-            bwd_fused_launches += 1
-            return dq.to(dt), dk, dv
         err = lib.flash_bwd_dq_launch(*head, dq.data_ptr(), *tail, stream)
         _build.check(err, "flash_bwd_dq_launch", lib.flash_bwd_error_string)
         bwd_dq_launches += 1
@@ -424,7 +544,8 @@ def flash_attention_bwd_reference(q, k, v, o, lse, do, *,
                                   causal: bool = True, layout: str = "bshd"):
     """Plain version of both backward routes (the fused and the split
     kernels compute the same function; only the order of their f32 sums
-    differs): p = exp(s - lse) where visible, dv = pᵀdO, dp = dO·Vᵀ,
+    differs, and each kernel's order is fixed, so each is bitwise
+    repeatable): p = exp(s - lse) where visible, dv = pᵀdO, dp = dO·Vᵀ,
     ds = p(dp - Δ)·scale, dk = dsᵀq, dq = ds·K, with p and ds rounded to
     the input dtype before those products and dk/dv summed over each kv
     head's group."""
