@@ -35,14 +35,18 @@ Phases, each asserting what it checks (any failure exits non-zero):
      training shape (b 8, h 12, s 1023, d 64, causal, bf16 and f32), at
      s 1024, head dims 32, 48, 80 and 128, GQA, layout bhsd, dense,
      sq != sk (causal both ways, and dense), in both dtypes, and through
-     ``FlashAttention`` with the split path forced; the fused route's
+     ``FlashAttention`` with the split path forced (f32 and bf16); bf16
+     takes the Hopper kernels (the fused route's flash_bwd_wgmma_kernel,
+     the split route's flash_bwd_dq_wgmma_kernel and
+     flash_bwd_dkv_wgmma_kernel), f32 the CUDA-core ones; both routes'
      dq, dk and dv bitwise equal over two calls (bf16 and f32, the
      training shape and GQA); each timed beside its bound and its
      library yardstick (SDPA's flash forward and backward): the kernels
      alone from a profiler trace (the fused route as the sum of its two
      kernels, the Hopper kernel or the f32 CUDA-core one and the ordered
-     dq sum), the wrapper and SDPA with CUDA events; with the kernels'
-     register, spill and shared-memory report from nvcc;
+     dq sum; the split route's two kernels each), the wrapper and SDPA
+     with CUDA events; with the kernels' register, spill and
+     shared-memory report from nvcc;
   8. training slice parity: GPT-2-small f32, b 1, s 128, loss and every
      gradient from the card's kernels against the CPU plain versions;
   9. the training path: GPT-2-small bf16 with use_flash, remat
@@ -55,7 +59,9 @@ Phases, each asserting what it checks (any failure exits non-zero):
      profiled step's device time by kernel group;
  10. the long-sequence training path: GPT-2-small width, 2 layers,
      max_seq 16384, one step on [1, 16384]: the backward takes the split
-     kernels, once each per layer; then the three training kernels at
+     kernels, once each per layer by the counters, and a profiled second
+     step's trace shows the two Hopper split kernels once per layer and
+     no CUDA-core or fused backward; then the three training kernels at
      that shape ([1, 16384, 12, 64] bf16) against their plain versions
      (run two heads at a time), timed as in phase 7, with the peak
      device memory of the checks, and the forward at head dims 48 and
@@ -276,11 +282,21 @@ SIMT_FWD = "flash_fwd_kernel"
 # The backward's kernels (ops/csrc/flash_bwd.cu). The fused route is two
 # launches: bf16 the Hopper kernel, f32 the CUDA-core dk/dv kernel's
 # fused instantiation, each followed by the ordered dq sum. The split
-# route is the CUDA-core dq and dk/dv kernels. No name contains another.
+# route is a dq and a dk/dv kernel: bf16 the two Hopper ones, f32 the
+# CUDA-core ones. No name contains another, so a profiler trace matches
+# each once a call.
 WGMMA_BWD = "flash_bwd_wgmma_kernel"
 DQ_SUM = "flash_bwd_dq_sum_kernel"
 SIMT_BWD_KV = "flash_bwd_kv_kernel"
 SIMT_BWD_DQ = "flash_bwd_dq_kernel"
+WGMMA_BWD_DQ = "flash_bwd_dq_wgmma_kernel"
+WGMMA_BWD_DKV = "flash_bwd_dkv_wgmma_kernel"
+_NAMES = (WGMMA_FWD, SIMT_FWD, WGMMA_BWD, DQ_SUM, SIMT_BWD_KV, SIMT_BWD_DQ,
+          WGMMA_BWD_DQ, WGMMA_BWD_DKV)
+assert not any(a in b for a in _NAMES for b in _NAMES if a != b), _NAMES
+# The split route's kernels by dtype: (dq, dk/dv).
+SPLIT_KERNELS = {torch.bfloat16: (WGMMA_BWD_DQ, WGMMA_BWD_DKV),
+                 torch.float32: (SIMT_BWD_DQ, SIMT_BWD_KV)}
 
 
 def flash_pairs(sq, sk, causal):
@@ -506,6 +522,10 @@ def _kernel_group(name: str) -> str:
         return "flash_fwd"
     if WGMMA_BWD in name:
         return "flash_bwd_wgmma"
+    if WGMMA_BWD_DQ in name:
+        return "flash_bwd_dq_wgmma"
+    if WGMMA_BWD_DKV in name:
+        return "flash_bwd_dkv_wgmma"
     if DQ_SUM in name:
         return "flash_bwd_dq_sum"
     if SIMT_BWD_KV in name:
@@ -774,10 +794,20 @@ def fused_ms(fn, dtype, iters: int = 20) -> dict:
     return dict(t, ms=t["kernel"] + t["dq_sum"])
 
 
-def check_repeatable(first, args, kw, what) -> bool:
-    """The fused route's dq, dk and dv are bitwise equal over two calls
-    on the same inputs (its dq is summed in a fixed order)."""
-    again = k_flash.flash_attention_bwd_fused(*args, **kw)
+def split_ms(fn, dtype, iters: int = 20) -> dict:
+    """The split route's two kernels' device times from a profiler trace
+    (bf16 the Hopper kernels, f32 the CUDA-core ones), each matched once
+    a call."""
+    dq, dkv = SPLIT_KERNELS[dtype]
+    return kernel_device_ms(fn, {"bwd_dq": dq, "bwd_dkv": dkv}, iters)
+
+
+def check_repeatable(first, args, kw, what,
+                     fn=k_flash.flash_attention_bwd_fused) -> bool:
+    """A backward route's dq, dk and dv are bitwise equal over two calls
+    on the same inputs (the fused route sums dq in a fixed order; the
+    split route writes each gradient once)."""
+    again = fn(*args, **kw)
     for name, a, b in zip(("dq", "dk", "dv"), first, again):
         assert torch.equal(a, b), f"{what} {name}: two calls differ"
     REPORT.setdefault("repeatable", []).append(what)
@@ -809,6 +839,9 @@ def check_training_kernels():
         check_repeatable(fused, (q, k, v, o, lse, do), {},
                          f"fused b{b} s{s} h{h} d{d} {dtype}")
         check_grads(split, ref, dtype, f"split {dtype}")
+        check_repeatable(split, (q, k, v, o, lse, do), {},
+                         f"split b{b} s{s} h{h} d{d} {dtype}",
+                         k_flash.flash_attention_bwd_split)
         dq_err = max_err(split[0], ref[0])
         dkv_err = max(max_err(split[1], ref[1]), max_err(split[2], ref[2]))
         rels = {"bwd_fused": fused_rel, "bwd_dq": rel_err(split[0], ref[0]),
@@ -824,9 +857,8 @@ def check_training_kernels():
         fused_t = fused_ms(lambda: k_flash.flash_attention_bwd_fused(*args),
                            dtype)
         dev_ms["bwd_fused"] = fused_t["ms"]
-        dev_ms.update(kernel_device_ms(
-            lambda: k_flash.flash_attention_bwd_split(*args),
-            {"bwd_dq": SIMT_BWD_DQ, "bwd_dkv": SIMT_BWD_KV}))
+        dev_ms.update(split_ms(
+            lambda: k_flash.flash_attention_bwd_split(*args), dtype))
         wrapper_ms = {
             "fwd_lse": time_ms(lambda: k_flash.flash_attention_fwd_lse(
                 q, k, v), 20),
@@ -924,9 +956,9 @@ def sdpa_times(q, k, v, do):
 def check_training_shapes():
     """Beyond the training shape: s 1024, head dims 32 and 128, GQA,
     layout bhsd, dense, sq != sk (causal sq > sk and sq < sk, dense
-    sq > sk); the fused route repeatable at the GQA shape; then
-    FlashAttention end to end with the split path forced (budget 0),
-    against the plain versions."""
+    sq > sk); both routes repeatable at the GQA shape; then
+    FlashAttention end to end with the split path forced (budget 0), in
+    both dtypes, against the plain versions."""
     out = []
     cases = [(b, sq, sk, h, hk, d, dtype, layout, causal)
              for (b, sq, sk, h, hk, d, layout, causal) in (
@@ -955,11 +987,14 @@ def check_training_shapes():
         what = f"b{b} sq{sq} sk{sk} h{h}/{hk} d{d} {layout} causal={causal}"
         fused = k_flash.flash_attention_bwd_fused(q, k, v, o, lse, do, **kw)
         e_f, _ = check_grads(fused, ref, dtype, "fused " + what)
+        split = k_flash.flash_attention_bwd_split(q, k, v, o, lse, do, **kw)
+        e_s, _ = check_grads(split, ref, dtype, "split " + what)
         if (sq, hk, d) == (333, 2, 64):
             check_repeatable(fused, (q, k, v, o, lse, do), kw,
                              f"fused {what} {dtype}")
-        e_s, _ = check_grads(k_flash.flash_attention_bwd_split(
-            q, k, v, o, lse, do, **kw), ref, dtype, "split " + what)
+            check_repeatable(split, (q, k, v, o, lse, do), kw,
+                             f"split {what} {dtype}",
+                             k_flash.flash_attention_bwd_split)
         out.append(dict(case=what, dtype=str(dtype).split(".")[-1],
                         fwd_err=max_err(o, o_ref),
                         lse_err=max_err(lse, lse_ref), fused_err=e_f,
@@ -968,26 +1003,28 @@ def check_training_shapes():
     # FlashAttention through autograd, split path forced.
     from ray_tpu_torch.ops.flash_attention import flash_attention
 
-    budget = k_flash._FUSED_BWD_VMEM_BUDGET
-    k_flash._FUSED_BWD_VMEM_BUDGET = 0
-    try:
-        q, k, v, do = train_inputs(2, 1023, 12, 12, 64, torch.float32, 70)
-        reset_counts()
-        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-        flash_attention(*leaves).backward(do)
-        seen = counts()
-    finally:
-        k_flash._FUSED_BWD_VMEM_BUDGET = budget
-    o, lse = k_flash.flash_attention_fwd_lse_reference(q, k, v)
-    ref = k_flash.flash_attention_bwd_reference(q, k, v, o, lse, do)
-    e, _ = check_grads([t.grad for t in leaves], ref, torch.float32,
-                       "FlashAttention split forced")
-    assert (seen["lse_launches"], seen["bwd_dq_launches"],
-            seen["bwd_dkv_launches"], seen["bwd_fused_launches"]) == \
-        (1, 1, 1, 0), seen
-    out.append(dict(case="FlashAttention b2 s1023 h12 d64 f32, split "
-                    "forced", grad_err=e, launches=seen))
-    log(f"[7] {out[-1]}")
+    for dtype in (torch.float32, torch.bfloat16):
+        budget = k_flash._FUSED_BWD_VMEM_BUDGET
+        k_flash._FUSED_BWD_VMEM_BUDGET = 0
+        try:
+            q, k, v, do = train_inputs(2, 1023, 12, 12, 64, dtype, 70)
+            reset_counts()
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            flash_attention(*leaves).backward(do)
+            seen = counts()
+        finally:
+            k_flash._FUSED_BWD_VMEM_BUDGET = budget
+        o, lse = k_flash.flash_attention_fwd_lse_reference(q, k, v)
+        ref = k_flash.flash_attention_bwd_reference(q, k, v, o, lse, do)
+        e, r = check_grads([t.grad for t in leaves], ref, dtype,
+                           f"FlashAttention split forced {dtype}")
+        assert (seen["lse_launches"], seen["bwd_dq_launches"],
+                seen["bwd_dkv_launches"], seen["bwd_fused_launches"]) == \
+            (1, 1, 1, 0), seen
+        out.append(dict(case=f"FlashAttention b2 s1023 h12 d64 "
+                        f"{str(dtype).split('.')[-1]}, split forced",
+                        grad_err=e, grad_rel_err=r, launches=seen))
+        log(f"[7] {out[-1]}")
     return out
 
 
@@ -1025,7 +1062,7 @@ def kernel_template(name: str):
 def ptxas_label(kern: str, args: tuple):
     """The report's label of one instantiation, or None for the ones it
     leaves out (the CUDA-core kernels at head dims other than 64)."""
-    if kern in (WGMMA_FWD, WGMMA_BWD):
+    if kern in (WGMMA_FWD, WGMMA_BWD, WGMMA_BWD_DQ, WGMMA_BWD_DKV):
         return f"{kern}_dp{args[0]}_bf16"
     if kern == DQ_SUM:
         return f"{kern}_{args[0]}"
@@ -1041,16 +1078,20 @@ def ptxas_report() -> dict:
     """Registers and spills of the training sources' kernels, from
     nvcc's -Xptxas -v report of the libraries this run loaded (kept
     beside each library, so a reused build has it too): the Hopper
-    kernels (forward and fused backward) at both padded head dims, with
-    their dynamic shared memory, the ordered dq sum in both dtypes, and
-    every CUDA-core kernel at head dim 64. A Hopper kernel's count is the
+    kernels (forward, fused and split backward) at both padded head dims,
+    with their dynamic shared memory, the ordered dq sum in both dtypes,
+    and every CUDA-core kernel at head dim 64 (float32 only: bf16 takes the
+    Hopper kernels on every route). A Hopper kernel's count is the
     launch's (384 threads, 168 a thread); setmaxnreg then moves the
-    producer's registers to the consumers."""
+    producer's registers to the consumers. The backward's Hopper kernels
+    (fused and split) and the dq sum must not spill."""
     import re
 
     fwd, bwd = k_flash._fwd_lib(), k_flash._bwd_lib()
     smem = {WGMMA_FWD: lambda dp: fwd.flash_fwd_smem_bytes(1, dp),
             WGMMA_BWD: bwd.flash_bwd_smem_bytes,
+            WGMMA_BWD_DQ: lambda dp: bwd.flash_bwd_split_smem_bytes(1, dp),
+            WGMMA_BWD_DKV: lambda dp: bwd.flash_bwd_split_smem_bytes(2, dp),
             SIMT_FWD: lambda d: fwd.flash_fwd_smem_bytes(0, d)}
     out, warns = {}, []
     for src in ("flash_fwd", "flash_bwd"):
@@ -1073,15 +1114,14 @@ def ptxas_report() -> dict:
                 row["dynamic_smem_bytes"] = smem[kern](
                     args[0] if kern != SIMT_FWD else args[1])
             out[label] = row
+    hopper_bwd = {f"{kern}_dp{dp}_bf16" for kern in (
+        WGMMA_BWD, WGMMA_BWD_DQ, WGMMA_BWD_DKV) for dp in (64, 128)}
     want = {f"{WGMMA_FWD}_dp64_bf16", f"{WGMMA_FWD}_dp128_bf16",
-            f"{SIMT_FWD}_f32", f"{WGMMA_BWD}_dp64_bf16",
-            f"{WGMMA_BWD}_dp128_bf16", f"{DQ_SUM}_bf16", f"{DQ_SUM}_f32",
-            f"{SIMT_BWD_KV}_fused_f32", f"{SIMT_BWD_KV}_split_bf16",
-            f"{SIMT_BWD_KV}_split_f32", f"{SIMT_BWD_DQ}_bf16",
-            f"{SIMT_BWD_DQ}_f32"}
+            f"{SIMT_FWD}_f32", f"{DQ_SUM}_bf16", f"{DQ_SUM}_f32",
+            f"{SIMT_BWD_KV}_fused_f32", f"{SIMT_BWD_KV}_split_f32",
+            f"{SIMT_BWD_DQ}_f32"} | hopper_bwd
     assert set(out) == want, f"ptxas report: {sorted(out)} != {sorted(want)}"
-    for label in (f"{WGMMA_BWD}_dp64_bf16", f"{WGMMA_BWD}_dp128_bf16",
-                  f"{DQ_SUM}_bf16"):
+    for label in sorted(hopper_bwd) + [f"{DQ_SUM}_bf16"]:
         assert out[label]["spill_stores"] in (0, None) and \
             out[label]["spill_loads"] in (0, None), (label, out[label])
     REPORT["ptxas_warnings"] = warns
@@ -1170,7 +1210,8 @@ def training():
     # CUDA-core backward kernel.
     n = busy["launches"]
     assert n.get("flash_bwd_wgmma") == L and n.get("flash_bwd_dq_sum") == L \
-        and "flash_bwd_kv" not in n and "flash_bwd_dq" not in n, n
+        and not {"flash_bwd_kv", "flash_bwd_dq", "flash_bwd_dq_wgmma",
+                 "flash_bwd_dkv_wgmma"} & set(n), n
     out = dict(model="GPT-2-small bf16 use_flash remat dots_flash, AdamW "
                "bf16 mu", batch=b, seq=s, losses=losses, step_ms=wall,
                median_step_ms=step_ms,
@@ -1194,18 +1235,33 @@ def long_sequence_training():
                         n_layer=2, max_seq=16384)
     tokens = torch.randint(0, cfg.vocab_size, (1, 16384),
                            generator=gen(14)).to(DEV)
-    losses, wall, seen, _, _ = train_path(cfg, tokens, 1, 13)
+    losses, wall, seen, step, state = train_path(cfg, tokens, 1, 13)
     c = seen[0]
     L = cfg.n_layer
     assert np.isfinite(losses[0]), losses
     assert (c["lse_launches"], c["bwd_dq_launches"],
             c["bwd_dkv_launches"], c["bwd_fused_launches"],
             c["launches"]) == (L, L, L, 0, 0), c
+    holder = [state]
+
+    def one_step():
+        holder[0], m = step(holder[0], tokens)
+        float(m["loss"])
+
+    # A second step, profiled: the bf16 split route is the two Hopper
+    # kernels once per layer, with no CUDA-core or fused backward.
+    busy = device_busy(one_step, 1)
+    assert busy is not None, "no device events in the long step's trace"
+    n = busy["launches"]
+    assert n.get("flash_bwd_dq_wgmma") == L and \
+        n.get("flash_bwd_dkv_wgmma") == L and not {
+            "flash_bwd_kv", "flash_bwd_dq", "flash_bwd_wgmma",
+            "flash_bwd_dq_sum"} & set(n), n
     out = dict(model="GPT-2-small width, 2 layers, bf16, max_seq 16384",
                loss=losses[0], step_ms=wall[0],
                bwd_dq_launches=c["bwd_dq_launches"],
                bwd_dkv_launches=c["bwd_dkv_launches"],
-               lse_launches=c["lse_launches"])
+               lse_launches=c["lse_launches"], profiled_step_device_ms=busy)
     log(f"[10] long-sequence training step: {out}")
     return out
 
@@ -1274,9 +1330,8 @@ def check_long_kernels():
     fused_t = fused_ms(lambda: k_flash.flash_attention_bwd_fused(*args),
                        dtype, iters=10)
     dev_ms["bwd_fused"] = fused_t["ms"]
-    dev_ms.update(kernel_device_ms(
-        lambda: k_flash.flash_attention_bwd_split(*args),
-        {"bwd_dq": SIMT_BWD_DQ, "bwd_dkv": SIMT_BWD_KV}, iters=10))
+    dev_ms.update(split_ms(lambda: k_flash.flash_attention_bwd_split(*args),
+                           dtype, iters=10))
     wrapper_ms = {
         "fwd_lse": time_ms(lambda: k_flash.flash_attention_fwd_lse(q, k, v),
                            10),
@@ -1414,15 +1469,18 @@ def main():
             replaces=f"ray_tpu/ops/pallas/flash.py:{line}", launches=n,
             max_abs_err=row["max_abs_err"], rel_err=row["rel_err"],
             tolerance=row["tolerance"], tolerance_on=row["tolerance_on"],
-            ms=row["ms"], wrapper_ms=at["wrapper_ms"][wrap],
+            ms=row["ms"], kernel_ms=row.get("kernel_ms", row["ms"]),
+            wrapper_ms=at["wrapper_ms"][wrap],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
             shape=at["shape"] + " bf16"))
         if label == "bwd_fused":
             # ms is the route's two kernels: the Hopper kernel and the
-            # ordered dq sum.
-            kernels[-1].update(kernel_ms=row["kernel_ms"],
-                               dq_sum_ms=row["dq_sum_ms"])
+            # ordered dq sum; kernel_ms the Hopper kernel alone.
+            kernels[-1].update(dq_sum_ms=row["dq_sum_ms"])
+        elif label != "fwd_lse":
+            kernels[-1].update(
+                kernel=SPLIT_KERNELS[torch.bfloat16][label == "bwd_dkv"])
     se = REPORT["serve_engine"]
     serving = dict(card=card, model="GPT-2-small bf16 use_flash",
                    tokens_per_s=se["tokens_per_s"],

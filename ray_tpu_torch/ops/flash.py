@@ -18,8 +18,13 @@ Four CUDA entry points, each a wrapper with its own launch counter:
     order; ``bwd_geometry`` computes the launch geometry; counter
     ``bwd_fused_launches`` (one a call, for the pair);
   * ``flash_attention_bwd_split`` — the long-sequence path, one dq kernel
-    (``_bwd_dq_kernel``) and one dk/dv kernel (``_bwd_dkv_kernel``);
-    counters ``bwd_dq_launches`` and ``bwd_dkv_launches``.
+    (``_bwd_dq_kernel``) and one dk/dv kernel (``_bwd_dkv_kernel``), the
+    same source: for bf16 the Hopper kernels (the dk/dv kernel is the
+    fused kernel without its dq; the dq kernel has the forward's
+    structure with a known LSE), for f32 the CUDA-core ones, each
+    gradient written once (no workspace); ``bwd_geometry`` (routes
+    "kv" and "dq") computes both launches' geometry; counters
+    ``bwd_dq_launches`` and ``bwd_dkv_launches``.
 
 Each launches its kernel for a CUDA tensor (or raises) and takes its
 plain PyTorch version for a CPU tensor; a counter counts kernel launches
@@ -110,11 +115,10 @@ def _bwd_lib():
     if lib.flash_bwd_fused_launch.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         head = [i, i, p, p, p, p, p, p]
-        tail = [i, i, i, i, i, p, i, f, p]
-        lib.flash_bwd_fused_launch.argtypes = head + [p, p, p, p, p] + [
-            i, i, i, i, p, i, f, p]
+        tail = [i, i, i, i, p, i, f, p]
+        lib.flash_bwd_fused_launch.argtypes = head + [p, p, p, p, p] + tail
         lib.flash_bwd_dq_launch.argtypes = head + [p] + tail
-        lib.flash_bwd_dkv_launch.argtypes = head + [p, p] + tail
+        lib.flash_bwd_dkv_launch.argtypes = head + [p, p, p] + tail
         for fn in (lib.flash_bwd_fused_launch, lib.flash_bwd_dq_launch,
                    lib.flash_bwd_dkv_launch):
             fn.restype = i
@@ -122,6 +126,8 @@ def _bwd_lib():
         lib.flash_bwd_geom_len.restype = i
         lib.flash_bwd_smem_bytes.argtypes = [i]
         lib.flash_bwd_smem_bytes.restype = i
+        lib.flash_bwd_split_smem_bytes.argtypes = [i, i]
+        lib.flash_bwd_split_smem_bytes.restype = i
         lib.flash_bwd_error_string.argtypes = [i]
         lib.flash_bwd_error_string.restype = ctypes.c_char_p
         if lib.flash_bwd_geom_len() != BWD_GEOM_LEN:
@@ -361,28 +367,37 @@ def flash_attention_fwd_lse_reference(q, k, v, *, causal: bool = True,
 
 # ------------------------------------------------------------ backward
 
-# The fused route's tiles (ops/csrc/flash_bwd.cu). bf16: key tiles of 128
-# (64 for each consumer warpgroup) and q tiles of 8192 / DP rows (128 at
-# DP 64, 64 at DP 128), the head dim padded as the forward's. f32: the
-# CUDA-core kernel's 64 x 64 tiles.
+# The backward's tiles (ops/csrc/flash_bwd.cu). bf16, the fused route and
+# the split dk/dv kernel: key tiles of 128 (64 for each consumer
+# warpgroup) and q tiles of 8192 / DP rows (128 at DP 64, 64 at DP 128),
+# the head dim padded as the forward's; the split dq kernel: q tiles of
+# 128 rows (64 a consumer) and key tiles of 8192 / DP. f32: the CUDA-core
+# kernels' 64 x 64 tiles.
 _BWD_BLOCK_K = 128
-# Values in the int64 geometry array flash_bwd_fused_launch reads.
+_DQ_BLOCK_Q = 128
+_BWD_ROUTES = ("kv", "dq")
+# Values in the int64 geometry array the backward's C entry points read.
 BWD_GEOM_LEN = 74
 
 
 @dataclasses.dataclass(frozen=True)
 class BwdGeometry:
-    """The launch geometry of the fused backward for one call. Each CTA
-    owns one key tile; its dq contribution for every q tile it visits
-    goes to slot ``kt`` of an f32 workspace [slots, b, h, sq, d], which
-    the sum kernel reduces in increasing ``kt``."""
+    """The launch geometry of one backward kernel for one call.
+
+    Route "kv" (the fused kernel and the split dk/dv kernel) runs one CTA
+    per key tile. The fused route writes its dq contribution for every q
+    tile it visits to slot ``kt`` of an f32 workspace [slots, b, h, sq,
+    d], which the sum kernel reduces in increasing ``kt``. Route "dq"
+    (the split dq kernel) runs one CTA per q tile, walking the key tiles
+    0 .. ``last_slot``."""
     head_dim_padded: int
     block_q: int
     block_k: int
     grid: tuple[int, int, int]
     batch: int
     q_tiles: int
-    slots: int                         # key tiles: dq workspace slots
+    slots: int                         # key tiles (the fused route's dq
+                                       # workspace slots)
     strides: tuple[int, ...]           # elements: (b, h, s) of q, k, v,
                                        # do, dq, dk, dv
     maps: tuple[TensorMapGeometry, ...]   # q, k, v, do (bf16), () for f32
@@ -392,19 +407,21 @@ class BwdGeometry:
 
     def first_q_tile(self, kt: int, causal: bool) -> int:
         """The first q tile key tile ``kt`` is visible to (the
-        reference's ``lower``); the CTA walks from there down."""
+        reference's ``lower``); a key tile's CTA walks from there down."""
         return kt * self.block_k // self.block_q if causal else 0
 
     def last_slot(self, qt: int, causal: bool) -> int:
-        """The last key tile q tile ``qt`` sees: the sum kernel adds the
-        slots 0 .. last_slot of its rows, in that order."""
+        """The last key tile q tile ``qt`` sees (the reference's
+        ``upper`` less one): the fused route's sum kernel adds the slots
+        0 .. last_slot of its rows, in that order; the dq kernel's CTA
+        walks those key tiles."""
         if not causal:
             return self.slots - 1
         return min(self.slots - 1,
                    (qt * self.block_q + self.block_q - 1) // self.block_k)
 
     def to_array(self) -> list:
-        """The int64 values flash_bwd_fused_launch reads."""
+        """The int64 values the C entry points read."""
         vals = [self.head_dim_padded, self.block_q, self.block_k,
                 *self.grid, self.batch, self.q_tiles, self.slots,
                 *self.strides]
@@ -413,38 +430,48 @@ class BwdGeometry:
         return vals + [0] * (BWD_GEOM_LEN - len(vals))
 
 
-def bwd_geometry(q, k, v, do, dq, dk, dv, s_ax: int,
-                 h_ax: int) -> BwdGeometry:
-    """Launch geometry of the fused backward for these tensors (only
-    their dtype, shapes and strides are read: no device is touched).
+def bwd_geometry(q, k, v, do, dq, dk, dv, s_ax: int, h_ax: int,
+                 route: str = "kv") -> BwdGeometry:
+    """Launch geometry of a backward kernel for these tensors (only their
+    dtype, shapes and strides are read: no device is touched).
 
-    bf16: the Hopper kernel. Grid (kv heads, b, key tiles): the key tile
-    is the slowest axis, so the first tiles, with the longest causal
-    walks, start first. Q, K, V and dO each get a tensor map over (d,
-    heads, seq, batch) with their own byte strides; boxes of 64 columns
-    by one tile of rows (block_q for Q and dO, 128 for K and V). f32: the
-    CUDA-core kernel, 64 x 64 tiles, grid (key tiles, kv heads, b), no
-    tensor maps."""
+    bf16, route "kv": the Hopper kernels of one key tile a CTA (the
+    fused kernel and the split dk/dv kernel). Grid (kv heads, b, key tiles): the key tile is the slowest axis,
+    so the first tiles, with the longest causal walks, start first. Q, K,
+    V and dO each get a tensor map over (d, heads, seq, batch) with their
+    own byte strides; boxes of 64 columns by one tile of rows (block_q
+    for Q and dO, 128 for K and V). bf16, route "dq": the Hopper dq
+    kernel, grid (h, b, q tiles), the q tile the slowest axis and walked
+    from the last (the longest causal walks first); the same maps with
+    boxes of 128 rows for Q and dO and block_k = 8192 / DP for K and V.
+    f32: the CUDA-core kernels, 64 x 64 tiles, grid (key tiles, kv heads,
+    b) or, route "dq", (q tiles, h, b); no tensor maps."""
+    if route not in _BWD_ROUTES:
+        raise ValueError(f"route must be one of {_BWD_ROUTES}, got {route!r}")
     b, sq, h, d = q.shape[0], q.shape[s_ax], q.shape[h_ax], q.shape[-1]
     sk, hk = k.shape[s_ax], k.shape[h_ax]
     strides = tuple(st for t in (q, k, v, do, dq, dk, dv)
                     for st in (t.stride(0), t.stride(h_ax), t.stride(s_ax)))
     if q.dtype == torch.float32:
-        nk = -(-sk // _F32_BLOCK)
-        return BwdGeometry(d, _F32_BLOCK, _F32_BLOCK, (nk, hk, b), b,
-                           -(-sq // _F32_BLOCK), nk, strides, ())
+        nq, nk = -(-sq // _F32_BLOCK), -(-sk // _F32_BLOCK)
+        grid = (nq, h, b) if route == "dq" else (nk, hk, b)
+        return BwdGeometry(d, _F32_BLOCK, _F32_BLOCK, grid, b, nq, nk,
+                           strides, ())
     dp = _padded_head_dim(d)
-    bq = 8192 // dp
-    nk = -(-sk // _BWD_BLOCK_K)
-    maps = _tensor_maps(((q, bq), (k, _BWD_BLOCK_K), (v, _BWD_BLOCK_K),
-                         (do, bq)), s_ax, h_ax)
-    return BwdGeometry(dp, bq, _BWD_BLOCK_K, (hk, b, nk), b, -(-sq // bq),
-                       nk, strides, maps)
+    if route == "dq":
+        bq, bk = _DQ_BLOCK_Q, 8192 // dp
+    else:
+        bq, bk = 8192 // dp, _BWD_BLOCK_K
+    nq, nk = -(-sq // bq), -(-sk // bk)
+    grid = (h, b, nq) if route == "dq" else (hk, b, nk)
+    maps = _tensor_maps(((q, bq), (k, bk), (v, bk), (do, bq)), s_ax, h_ax)
+    return BwdGeometry(dp, bq, bk, grid, b, nq, nk, strides, maps)
 
 
 def row_stats(lse, delta, block_q: int):
-    """The bf16 kernel's per-q-tile rows: [b, h, q tiles, 2, block_q]
-    f32, each tile's LSE then Δ, zero past sq (one bulk copy a tile)."""
+    """The bf16 key-tile kernels' (fused, split dk/dv) per-q-tile rows:
+    [b, h, q tiles, 2, block_q] f32, each tile's LSE then Δ, zero past sq
+    (one bulk copy a tile)."""
     b, h, sq = lse.shape
     pad = -sq % block_q
     tiles = [torch.nn.functional.pad(t, (0, pad)).view(b, h, -1, block_q)
@@ -523,18 +550,24 @@ def _launch_bwd(q, k, v, o, lse, do, causal, s_ax, h_ax, fused):
                      lib.flash_bwd_error_string)
         bwd_fused_launches += 1
         return dq, dk, dv
-    strides = []
-    for t in (q, k, v, do, dq, dk, dv):
-        strides += [t.stride(0), t.stride(h_ax), t.stride(s_ax)]
-    st = (ctypes.c_int64 * 21)(*strides)
-    tail = (b, h, group, sq, sk, st, int(causal), scale)
+    # The split route: Δ and (bf16) the dk/dv kernel's LSE/Δ tiles built
+    # once, both kernels launched on the current stream; no workspace.
+    tail = (h, group, sq, sk)
+    g_dq, g_kv = (bwd_geometry(q, k, v, do, dq, dk, dv, s_ax, h_ax, route=r)
+                  for r in ("dq", "kv"))
+    rows = (row_stats(lse, delta, g_kv.block_q)
+            if dt == torch.bfloat16 else None)
+    arr_dq, arr_kv = ((ctypes.c_int64 * BWD_GEOM_LEN)(*g.to_array())
+                      for g in (g_dq, g_kv))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.flash_bwd_dq_launch(*head, dq.data_ptr(), *tail, stream)
+        err = lib.flash_bwd_dq_launch(*head, dq.data_ptr(), *tail, arr_dq,
+                                      int(causal), scale, stream)
         _build.check(err, "flash_bwd_dq_launch", lib.flash_bwd_error_string)
         bwd_dq_launches += 1
-        err = lib.flash_bwd_dkv_launch(*head, dk.data_ptr(), dv.data_ptr(),
-                                       *tail, stream)
+        err = lib.flash_bwd_dkv_launch(
+            *head, None if rows is None else rows.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), *tail, arr_kv, int(causal), scale, stream)
         _build.check(err, "flash_bwd_dkv_launch", lib.flash_bwd_error_string)
         bwd_dkv_launches += 1
     return dq, dk, dv
