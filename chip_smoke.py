@@ -14,7 +14,14 @@ Phases, each asserting what it checks (any failure exits non-zero):
      serving path's shapes, bf16 and f32, timed with CUDA events beside
      its bound (and, for flash, beside scaled_dot_product_attention);
      every CUDA-event time holds the stream with a spin kernel while the
-     host enqueues the call, so it is the call's device time; the flash
+     host enqueues the call, so it is the call's device time; the paged
+     pair (paged_decode_split_kernel, then paged_decode_combine_kernel)
+     also by a profiler trace (each kernel, and the pair's span), at
+     other block sizes, head dims and groups, verify, and the edge cases
+     (a padded lane on the scratch block, contexts at and one past a
+     128-key chunk, a full table, verify with q_lens < q_len and rows
+     whose bound ends a chunk early), its output bitwise equal over two
+     calls (decode and verify, both dtypes); the flash
      forward also at other layouts, GQA, dense, sq != sk and head dims
      16-128 (48 and 80: the bf16 kernel's padded TMA boxes), causal
      sq > sk, in both dtypes, and a profiler trace shows bf16 launching
@@ -24,10 +31,14 @@ Phases, each asserting what it checks (any failure exits non-zero):
      (kernels) against the CPU (plain versions);
   4. serving, engine defaults: GPT-2-small bf16 with use_flash,
      whole-prompt prefill, prefix cache, 8 threaded requests; the launch
-     counters show the path went through both kernels, and the profiled
-     prefill's trace that its forward was the Hopper kernel;
+     counters show the path went through both kernels, the profiled
+     prefill's trace that its forward was the Hopper kernel, and the
+     profiled decode steps' trace the paged split and combine kernels
+     once per layer a step and paged_attention_kernel never;
   5. serving, handler defaults: LLMServer (chunked prefill, prefix
-     cache, a shared system prompt) streaming frames to ``done``;
+     cache, a shared system prompt) streaming frames to ``done``; then
+     its engine, stepped by hand, profiles one decode step: the paged
+     pair once per layer;
   6. preempt and resume: a pool too small for the batch gives the token
      streams of a roomy one;
   7. the training kernels (forward with LSE, fused backward, split dq and
@@ -46,7 +57,8 @@ Phases, each asserting what it checks (any failure exits non-zero):
      kernels, the Hopper kernel or the f32 CUDA-core one and the ordered
      dq sum; the split route's two kernels each), the wrapper and SDPA
      with CUDA events; with the kernels' register, spill and
-     shared-memory report from nvcc;
+     shared-memory report from nvcc (the paged pair's instantiations
+     too, no spills allowed);
   8. training slice parity: GPT-2-small f32, b 1, s 128, loss and every
      gradient from the card's kernels against the CPU plain versions;
   9. the training path: GPT-2-small bf16 with use_flash, remat
@@ -179,6 +191,63 @@ def time_ms(fn, iters: int, flush: bool = True) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in ev)
 
 
+def host_us(fn, calls: int = 100, reps: int = 20) -> float:
+    """Median host time of one call of ``fn`` in µs: ``calls`` calls
+    back to back while a spin kernel (~10 ms) holds the card, so no
+    launch waits on the device. On a host-bound step (the decode step)
+    this, not the device time, is what a call costs."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    res = []
+    for _ in range(reps):
+        torch.cuda._sleep(5 * HOLD_CYCLES)
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        res.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(res)
+
+
+def device_events(fn, calls: int, flush: bool = False,
+                  want: dict | None = None) -> list:
+    """The device (CUDA) events of a torch.profiler window in which
+    ``fn`` runs ``calls`` times, the 50 MB L2 flushed before each call
+    when ``flush``. A complete window has device events and, for each
+    kernel name in ``want``, that many events whose name contains it.
+    CUPTI now and then hands back a window with no device event at all,
+    or with some of them lost (seen on chip runs of this script at the
+    parent commit too, in a different phase each time): such a window is
+    taken again, at most three times, and the last one is returned for
+    the caller's own checks to fail on."""
+    from torch.profiler import ProfilerActivity, profile
+
+    global _FLUSH
+    if flush and _FLUSH is None:
+        _FLUSH = torch.empty(128 << 20, dtype=torch.uint8, device=DEV)
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with warnings.catch_warnings():
+            # The profiler warns once that events are cleared per cycle;
+            # this window is one cycle.
+            warnings.simplefilter("ignore", UserWarning)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(calls):
+                    if flush:
+                        _FLUSH.zero_()
+                    fn()
+                torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events and all(sum(k in e.name for e in events) == n
+                          for k, n in (want or {}).items()):
+            return events
+        REPORT["retaken_traces"] = REPORT.get("retaken_traces", 0) + 1
+    return events
+
+
 def bound(flops: float, nbytes: float, dtype):
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
@@ -191,17 +260,35 @@ def max_err(a, b) -> float:
 
 # ---------------------------------------------------------------- phase 2
 
+# The paged decode/verify pair (ops/csrc/paged_decode.cu): the split
+# kernel, then the ordered combine, launched as a programmatic dependent
+# of it. The earlier one-kernel design, paged_attention_kernel, is gone:
+# no trace may show it.
+PAGED_SPLIT = "paged_decode_split_kernel"
+PAGED_COMBINE = "paged_decode_combine_kernel"
+OLD_PAGED = "paged_attention_kernel"
+
+
 def paged_case(dtype, *, b, hkv, group, d, bs, max_nb, q_len=None,
-               seed=0, max_ctx=None):
+               seed=0, max_ctx=None, lens=None):
+    """Random pool and tables; ``lens`` fixes the contexts (a context of
+    1 keeps the all-zero table of a padded engine lane: its one key is
+    key 0 of the scratch block 0), else they are random with one full
+    ``max_ctx``."""
     rng = np.random.default_rng(seed)
     num_blocks = b * max_nb + 1
     max_ctx = max_ctx or max_nb * bs
-    lens = rng.integers(max(1, q_len or 1), max_ctx + 1, size=b)
-    lens[0] = max_ctx                       # one full-length context
+    padded = lens is not None   # a fixed context of 1: a padded lane
+    if lens is None:
+        lens = rng.integers(max(1, q_len or 1), max_ctx + 1, size=b)
+        lens[0] = max_ctx                   # one full-length context
+    lens = np.asarray(lens)
     tables = np.zeros((b, max_nb), np.int32)
     perm = rng.permutation(np.arange(1, num_blocks))
     used = 0
     for i, n in enumerate(lens):
+        if padded and n == 1:
+            continue
         nb = -(-int(n) // bs)
         tables[i, :nb] = perm[used:used + nb]
         used += nb
@@ -215,6 +302,49 @@ def paged_case(dtype, *, b, hkv, group, d, bs, max_nb, q_len=None,
                 lens=torch.from_numpy(lens.astype(np.int32)).to(DEV))
 
 
+def pair_device_ms(fn, iters: int = 50) -> dict:
+    """The paged pair's device times from a torch.profiler CUDA trace of
+    ``iters`` calls, the 50 MB L2 flushed before each: the median of each
+    kernel's duration and of the span from the split kernel's start to
+    the combine's end (the combine is scheduled while the split runs and
+    waits for its grid, so its own duration includes that wait; the
+    span is the pair's device time)."""
+    for _ in range(2):
+        fn()
+    ev = {}
+    for e in device_events(fn, iters, flush=True,
+                           want={PAGED_SPLIT: iters, PAGED_COMBINE: iters}):
+        for name in (PAGED_SPLIT, PAGED_COMBINE):
+            if name in e.name:
+                ev.setdefault(name, []).append(e.time_range)
+    split = sorted(ev.get(PAGED_SPLIT, []), key=lambda t: t.start)
+    comb = sorted(ev.get(PAGED_COMBINE, []), key=lambda t: t.start)
+    assert len(split) == len(comb) == iters, (len(split), len(comb))
+    return dict(
+        split=statistics.median(t.elapsed_us() for t in split) / 1e3,
+        combine=statistics.median(t.elapsed_us() for t in comb) / 1e3,
+        span=statistics.median(c.end - a.start
+                               for a, c in zip(split, comb)) / 1e3)
+
+
+def paged_check(dtype, what, out, ref, q_lens=None) -> float:
+    """Max abs error over the rows a caller reads (verify: the first
+    q_lens[b] of lane b), held at the reference's tolerance."""
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape and out.dtype == ref.dtype, what
+    if q_lens is None:
+        err = max_err(out, ref)
+        assert torch.isfinite(out.float()).all(), what
+    else:
+        err = max(max_err(out[i, :n], ref[i, :n])
+                  for i, n in enumerate(q_lens.tolist()))
+        assert all(torch.isfinite(out[i, :n].float()).all()
+                   for i, n in enumerate(q_lens.tolist())), what
+    tol = TOL[("paged", dtype)]
+    assert err <= tol, f"{what} {dtype}: err {err} > {tol}"
+    return err
+
+
 def check_paged():
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
@@ -223,12 +353,18 @@ def check_paged():
         args = (c["q"], c["k"], c["v"], c["tables"], c["lens"])
         out = k_paged.paged_decode_attention(*args)
         ref = k_paged.paged_decode_attention_reference(*args)
-        torch.cuda.synchronize()
-        err = max_err(out, ref)
+        err = paged_check(dtype, "paged decode", out, ref)
         tol = TOL[("paged", dtype)]
-        assert out.shape == ref.shape and torch.isfinite(out.float()).all()
-        assert err <= tol, f"paged decode {dtype}: err {err} > {tol}"
+        # The combine sums the splits in a fixed order: bitwise repeatable.
+        assert torch.equal(out, k_paged.paged_decode_attention(*args)), \
+            f"paged decode {dtype}: two calls differ"
         ms = time_ms(lambda: k_paged.paged_decode_attention(*args), 200)
+        # Without the flush: the pools are L2-resident (15 MB of 50), so
+        # this is the pair's time when HBM is not in the way.
+        warm_ms = time_ms(lambda: k_paged.paged_decode_attention(*args),
+                          200, flush=False)
+        dev = pair_device_ms(lambda: k_paged.paged_decode_attention(*args))
+        host = host_us(lambda: k_paged.paged_decode_attention(*args))
         plain_ms = time_ms(
             lambda: k_paged.paged_decode_attention_reference(*args), 20)
         isz = c["q"].element_size()
@@ -241,37 +377,68 @@ def check_paged():
         flops = 4 * ctx * hkv * d                   # q.k and p.v, 1 row
         b_ms, b_by = bound(flops, nbytes, dtype)
         rows.append(dict(dtype=str(dtype).split(".")[-1], max_abs_err=err,
-                         tolerance=tol, ms=ms, plain_ms=plain_ms,
-                         bound_ms=b_ms, bound_by=b_by, sum_ctx=ctx,
+                         tolerance=tol, ms=ms, warm_ms=warm_ms,
+                         kernel_ms=dev["span"], host_us=host,
+                         split_ms=dev["split"], combine_ms=dev["combine"],
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                         sum_ctx=ctx, repeatable=True,
                          shape="b8 hkv12 group1 d64 bs16 max_nb64"))
         log(f"[2] paged_decode {rows[-1]}")
-    # Other block sizes and head dims (the tile holds 64 // bs blocks,
-    # or one block when bs >= 64).
+    # Other block sizes and head dims: bs 8 (a stage of 8 blocks), 128
+    # (a block cut in two 64-key stages), 32 with d 16 and GQA 4.
     for (bs, d, group, dtype) in ((8, 64, 2, torch.bfloat16),
                                   (128, 128, 1, torch.float32),
                                   (32, 16, 4, torch.float32)):
         c = paged_case(dtype, b=4, hkv=3, group=group, d=d, bs=bs,
                        max_nb=6, seed=15)
         args = (c["q"], c["k"], c["v"], c["tables"], c["lens"])
-        err = max_err(k_paged.paged_decode_attention(*args),
-                      k_paged.paged_decode_attention_reference(*args))
-        assert err <= TOL[("paged", dtype)], \
-            f"paged decode bs{bs} d{d} group{group}: err {err}"
+        err = paged_check(dtype, f"paged decode bs{bs} d{d} group{group}",
+                          k_paged.paged_decode_attention(*args),
+                          k_paged.paged_decode_attention_reference(*args))
         log(f"[2] paged_decode bs{bs} d{d} group{group} {dtype} err {err:.3g}")
-    # Verify: group > 1, q_len 4 (one kernel serves both).
+    edges = []
     for dtype in (torch.bfloat16, torch.float32):
+        # Verify: group > 1, q_len 4 (one kernel pair serves both).
         c = paged_case(dtype, b=3, hkv=2, group=4, d=64, bs=16, max_nb=8,
                        q_len=4, seed=20)
         q_lens = torch.tensor([4, 2, 1], dtype=torch.int32, device=DEV)
         args = (c["q"], c["k"], c["v"], c["tables"], c["lens"], q_lens)
-        out = k_paged.paged_verify_attention(*args)
-        ref = k_paged.paged_verify_attention_reference(*args)
-        torch.cuda.synchronize()
-        err = max(max_err(out[i, :n], ref[i, :n])
-                  for i, n in enumerate(q_lens.tolist()))
-        tol = TOL[("paged", dtype)]
-        assert err <= tol, f"paged verify {dtype}: err {err} > {tol}"
+        err = paged_check(dtype, "paged verify",
+                          k_paged.paged_verify_attention(*args),
+                          k_paged.paged_verify_attention_reference(*args),
+                          q_lens)
         log(f"[2] paged_verify {dtype} group4 q_len4 err {err:.3g}")
+        # Edge cases at the serving block size: a padded lane (context 1
+        # on the scratch block), contexts at and one past a split's chunk
+        # (128 keys), a full table (1024 keys).
+        chunk = 16 * k_paged.decode_geometry(
+            5, 2, 2, 64, 16, 64, 5 * 64 + 1, c["q"].element_size()
+        ).chunk_blocks
+        c = paged_case(dtype, b=5, hkv=2, group=2, d=64, bs=16, max_nb=64,
+                       seed=21, lens=[1, chunk, chunk + 1, 1024, 500])
+        args = (c["q"], c["k"], c["v"], c["tables"], c["lens"])
+        out = k_paged.paged_decode_attention(*args)
+        e1 = paged_check(dtype, "paged decode edges", out,
+                         k_paged.paged_decode_attention_reference(*args))
+        assert torch.equal(out, k_paged.paged_decode_attention(*args))
+        # Verify edges: q_lens < q_len, and rows whose bound ends a chunk
+        # early (lane 0: token 0 sees keys below 128 of 131; lane 1: 128
+        # of 129), so the last split holds no key those rows see.
+        c = paged_case(dtype, b=5, hkv=2, group=2, d=64, bs=16, max_nb=64,
+                       q_len=4, seed=22, lens=[chunk + 3, chunk + 1, 4, 1024,
+                                               1])
+        q_lens = torch.tensor([4, 2, 4, 3, 1], dtype=torch.int32,
+                              device=DEV)
+        args = (c["q"], c["k"], c["v"], c["tables"], c["lens"], q_lens)
+        out = k_paged.paged_verify_attention(*args)
+        e2 = paged_check(dtype, "paged verify edges", out,
+                         k_paged.paged_verify_attention_reference(*args),
+                         q_lens)
+        assert torch.equal(out, k_paged.paged_verify_attention(*args))
+        edges.append(dict(dtype=str(dtype).split(".")[-1], decode_err=e1,
+                          verify_err=e2, repeatable=True))
+        log(f"[2] paged edges {edges[-1]}")
+    REPORT["paged_edges"] = edges
     return rows
 
 
@@ -292,7 +459,7 @@ SIMT_BWD_DQ = "flash_bwd_dq_kernel"
 WGMMA_BWD_DQ = "flash_bwd_dq_wgmma_kernel"
 WGMMA_BWD_DKV = "flash_bwd_dkv_wgmma_kernel"
 _NAMES = (WGMMA_FWD, SIMT_FWD, WGMMA_BWD, DQ_SUM, SIMT_BWD_KV, SIMT_BWD_DQ,
-          WGMMA_BWD_DQ, WGMMA_BWD_DKV)
+          WGMMA_BWD_DQ, WGMMA_BWD_DKV, PAGED_SPLIT, PAGED_COMBINE, OLD_PAGED)
 assert not any(a in b for a in _NAMES for b in _NAMES if a != b), _NAMES
 # The split route's kernels by dtype: (dq, dk/dv).
 SPLIT_KERNELS = {torch.bfloat16: (WGMMA_BWD_DQ, WGMMA_BWD_DKV),
@@ -367,7 +534,7 @@ def check_flash():
                                                        SIMT_FWD)):
         q, k, v = (randn((1, 4, 256, 64), dtype, 43 + i) for i in range(3))
         names = device_busy(lambda: k_flash.flash_attention_fwd(
-            q, k, v, layout="bhsd"), 1)["fwd_kernels"]
+            q, k, v, layout="bhsd"), 1, want={want: 1})["fwd_kernels"]
         assert names and all(want in n for n in names), (dtype, names)
         log(f"[2] flash {dtype} launches {names}")
     return rows
@@ -516,7 +683,7 @@ def serve_engine_defaults(params16):
 
 
 def _kernel_group(name: str) -> str:
-    if "paged_attention_kernel" in name:
+    if PAGED_SPLIT in name or PAGED_COMBINE in name or OLD_PAGED in name:
         return "paged_decode"
     if "flash_fwd_" in name:
         return "flash_fwd"
@@ -540,43 +707,46 @@ def _kernel_group(name: str) -> str:
     return "other"
 
 
-def device_busy(fn, steps: int):
+def device_busy(fn, steps: int, want: dict | None = None):
     """Device busy time per call of ``fn`` in ms, by kernel group, from a
     torch.profiler CUDA trace (kernels on one stream do not overlap, so
     their durations add up to the busy time), under "fwd_kernels" the
     names of the flash forward kernels launched and under "launches" the
-    number of kernels of each group in the whole window. None where the
-    trace has no device events."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with warnings.catch_warnings():
-        # The profiler warns once that events are cleared per cycle;
-        # this window is one cycle.
-        warnings.simplefilter("ignore", UserWarning)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(steps):
-                fn()
-            torch.cuda.synchronize()
-    groups, names, n = {}, {}, {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            us = e.time_range.elapsed_us()
-            g = _kernel_group(e.name)
-            groups[g] = groups.get(g, 0.0) + us
-            n[g] = n.get(g, 0) + 1
-            names[e.name[:80]] = names.get(e.name[:80], 0.0) + us
+    number of kernels of each group in the whole window, under
+    "kernel_launches" the number of launches of each kernel named in
+    ``_NAMES``. None where the trace has no device events. ``want``: the
+    launches of each named kernel a complete window holds (a window
+    taken again by ``device_events`` runs ``fn`` again)."""
+    groups, names, n, named = {}, {}, {}, {}
+    for e in device_events(fn, steps, want=want):
+        us = e.time_range.elapsed_us()
+        g = _kernel_group(e.name)
+        groups[g] = groups.get(g, 0.0) + us
+        n[g] = n.get(g, 0) + 1
+        names[e.name[:80]] = names.get(e.name[:80], 0.0) + us
+        for k in _NAMES:
+            if k in e.name:
+                named[k] = named.get(k, 0) + 1
     if not groups:
         return None
     out = {g: us / 1e3 / steps for g, us in sorted(groups.items())}
     out["total"] = sum(out.values())
     out["fwd_kernels"] = sorted({n for n in names if "flash_fwd_" in n})
     out["launches"] = dict(sorted(n.items()))
+    out["kernel_launches"] = dict(sorted(named.items()))
     top = sorted(names.items(), key=lambda kv: -kv[1])[:8]
     REPORT.setdefault("top_kernels", []).append(
         [(n, us / 1e3 / steps) for n, us in top])
     return out
+
+
+def check_paged_trace(busy, want: int, what: str):
+    """A decode window's trace shows the split and the combine kernel
+    ``want`` times each (once per layer a step) and the earlier design's
+    paged_attention_kernel never."""
+    n = busy["kernel_launches"]
+    assert n.get(PAGED_SPLIT) == want and n.get(PAGED_COMBINE) == want \
+        and OLD_PAGED not in n, (what, want, n)
 
 
 def step_breakdown(params16):
@@ -622,11 +792,16 @@ def step_breakdown(params16):
             fn()
             times.append((time.perf_counter() - t0) * 1e3)
         wall = statistics.median(times[n // 5:])
-        busy = device_busy(fn, 5)
+        per_layer = cfg.n_layer * 5
+        busy = device_busy(fn, 5, want=(
+            {PAGED_SPLIT: per_layer, PAGED_COMBINE: per_layer}
+            if name == "decode" else None))
         assert busy is not None, f"no device events in the {name} trace"
         if name == "prefill":   # bf16: the Hopper forward, nothing else
             assert busy["fwd_kernels"] and all(
                 WGMMA_FWD in n for n in busy["fwd_kernels"]), busy
+        else:   # the paged pair once per layer a step, the old kernel never
+            check_paged_trace(busy, per_layer, "phase 4 decode")
         out[name] = dict(wall_ms=wall, device_ms=busy,
                          device_idle_share=(None if busy is None else
                                             max(0.0, 1 - busy["total"]
@@ -636,6 +811,36 @@ def step_breakdown(params16):
 
 
 # ---------------------------------------------------------------- phase 5
+
+def handler_decode_trace(eng) -> dict:
+    """The handler's engine, its loop stopped, steps one more request
+    by hand until its prefill is done; the next step, a decode step and
+    nothing else, is profiled: the paged pair once per layer, the old
+    kernel never. Returns the trace's paged-kernel launches."""
+    eng.stop()
+    eng.add_request(list(range(1, 40)), max_tokens=8)
+    for _ in range(100):
+        s0 = eng.stats()
+        eng.step()
+        if eng.stats()["decode_steps"] > s0["decode_steps"]:
+            break
+    seen = []
+
+    def one_step():   # a window taken again steps again: check the last
+        a = eng.stats()
+        eng.step()
+        seen.append((a, eng.stats()))
+
+    L = eng.cfg.n_layer
+    busy = device_busy(one_step, 1, want={PAGED_SPLIT: L, PAGED_COMBINE: L})
+    s0, s1 = seen[-1]
+    assert busy is not None, "no device events in the handler's decode step"
+    assert s1["decode_steps"] == s0["decode_steps"] + 1 and \
+        s1["prefill_chunks"] == s0["prefill_chunks"], (s0, s1)
+    check_paged_trace(busy, L, "phase 5 decode step")
+    return {k: v for k, v in busy["kernel_launches"].items()
+            if k in (PAGED_SPLIT, PAGED_COMBINE)}
+
 
 def serve_handler_defaults(params16):
     system = ("You are a careful assistant running on a paged KV cache. "
@@ -665,6 +870,7 @@ def serve_handler_defaults(params16):
     finally:
         srv.engine.stop()
     assert not any(t.is_alive() for t in threads), "a client hung"
+    decode_trace = handler_decode_trace(srv.engine)
     for frames in [first] + results:
         assert frames[-1]["done"] is True, frames[-1]
         toks = [f["token"] for f in frames[:-1]]
@@ -674,7 +880,8 @@ def serve_handler_defaults(params16):
     assert seen["paged"] > 0
     assert all(seen[n] == 0 for n in _FLASH_COUNTERS[1:]), seen
     out = dict(cached_tokens=cached, hit_rate=stats["kv_cache_hit_rate"],
-               prefill_chunks=stats["prefill_chunks"], launches=seen)
+               prefill_chunks=stats["prefill_chunks"], launches=seen,
+               decode_step_kernels=decode_trace)
     log(f"[5] serving, handler defaults: {out}")
     return out
 
@@ -721,27 +928,13 @@ def kernel_device_ms(fn, labels: dict, iters: int = 20) -> dict:
     contains ``labels[label]``, from a torch.profiler CUDA trace of
     ``iters`` calls, the 50 MB L2 flushed before each (inputs come from
     HBM, as on the training path)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    global _FLUSH
-    if _FLUSH is None:
-        _FLUSH = torch.empty(128 << 20, dtype=torch.uint8, device=DEV)
     for _ in range(2):
         fn()
-    torch.cuda.synchronize()
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore", UserWarning)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                _FLUSH.zero_()
-                fn()
-            torch.cuda.synchronize()
+    events = device_events(fn, iters, flush=True,
+                           want={sub: iters for sub in labels.values()})
     out = {}
     for label, sub in labels.items():
-        us = [e.time_range.elapsed_us() for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and sub in e.name]
+        us = [e.time_range.elapsed_us() for e in events if sub in e.name]
         assert len(us) == iters, (label, sub, len(us))
         out[label] = statistics.median(us) / 1e3
     return out
@@ -1035,7 +1228,7 @@ def kernel_template(name: str):
     "f32", __nv_bfloat16 as "bf16". (None, ()) for another name."""
     import re
 
-    m = re.search(r"(?<=\d)(flash_[a-z_]+_kernel)I", name)
+    m = re.search(r"(?<=\d)((?:flash|paged)_[a-z_]+_kernel)I", name)
     if m is None:
         return None, ()
     rest, args = name[m.end():], []
@@ -1062,6 +1255,10 @@ def kernel_template(name: str):
 def ptxas_label(kern: str, args: tuple):
     """The report's label of one instantiation, or None for the ones it
     leaves out (the CUDA-core kernels at head dims other than 64)."""
+    if kern == PAGED_SPLIT:   # <T, rows a CTA, 16-byte vectors a lane>
+        return f"{kern}_rt{args[1]}_nv{args[2]}_{args[0]}"
+    if kern == PAGED_COMBINE:
+        return f"{kern}_{args[0]}"
     if kern in (WGMMA_FWD, WGMMA_BWD, WGMMA_BWD_DQ, WGMMA_BWD_DKV):
         return f"{kern}_dp{args[0]}_bf16"
     if kern == DQ_SUM:
@@ -1075,16 +1272,18 @@ def ptxas_label(kern: str, args: tuple):
 
 
 def ptxas_report() -> dict:
-    """Registers and spills of the training sources' kernels, from
-    nvcc's -Xptxas -v report of the libraries this run loaded (kept
-    beside each library, so a reused build has it too): the Hopper
-    kernels (forward, fused and split backward) at both padded head dims,
-    with their dynamic shared memory, the ordered dq sum in both dtypes,
-    and every CUDA-core kernel at head dim 64 (float32 only: bf16 takes the
-    Hopper kernels on every route). A Hopper kernel's count is the
-    launch's (384 threads, 168 a thread); setmaxnreg then moves the
+    """Registers and spills of the kernels, from nvcc's -Xptxas -v report
+    of the libraries this run loaded (kept beside each library, so a
+    reused build has it too): the Hopper kernels (forward, fused and
+    split backward) at both padded head dims, with their dynamic shared
+    memory, the ordered dq sum in both dtypes, every CUDA-core flash
+    kernel at head dim 64 (float32 only: bf16 takes the Hopper kernels on
+    every route), and every instantiation of the paged pair (the split
+    kernel at 1 and 4 rows a CTA, with one or, f32 only, two 16-byte
+    vectors a lane; the combine), both dtypes. A Hopper kernel's count is
+    the launch's (384 threads, 168 a thread); setmaxnreg then moves the
     producer's registers to the consumers. The backward's Hopper kernels
-    (fused and split) and the dq sum must not spill."""
+    (fused and split), the dq sum and the paged pair must not spill."""
     import re
 
     fwd, bwd = k_flash._fwd_lib(), k_flash._bwd_lib()
@@ -1094,7 +1293,7 @@ def ptxas_report() -> dict:
             WGMMA_BWD_DKV: lambda dp: bwd.flash_bwd_split_smem_bytes(2, dp),
             SIMT_FWD: lambda d: fwd.flash_fwd_smem_bytes(0, d)}
     out, warns = {}, []
-    for src in ("flash_fwd", "flash_bwd"):
+    for src in ("flash_fwd", "flash_bwd", "paged_decode"):
         text = _build.build_report(src)
         warns += [ln for ln in text.splitlines() if "warning" in ln.lower()]
         for m in re.finditer(
@@ -1116,12 +1315,15 @@ def ptxas_report() -> dict:
             out[label] = row
     hopper_bwd = {f"{kern}_dp{dp}_bf16" for kern in (
         WGMMA_BWD, WGMMA_BWD_DQ, WGMMA_BWD_DKV) for dp in (64, 128)}
+    paged = {f"{PAGED_SPLIT}_rt{rt}_nv{nv}_{t}" for rt in (1, 4)
+             for nv, t in ((1, "bf16"), (1, "f32"), (2, "f32"))} | {
+        f"{PAGED_COMBINE}_bf16", f"{PAGED_COMBINE}_f32"}
     want = {f"{WGMMA_FWD}_dp64_bf16", f"{WGMMA_FWD}_dp128_bf16",
             f"{SIMT_FWD}_f32", f"{DQ_SUM}_bf16", f"{DQ_SUM}_f32",
             f"{SIMT_BWD_KV}_fused_f32", f"{SIMT_BWD_KV}_split_f32",
-            f"{SIMT_BWD_DQ}_f32"} | hopper_bwd
+            f"{SIMT_BWD_DQ}_f32"} | hopper_bwd | paged
     assert set(out) == want, f"ptxas report: {sorted(out)} != {sorted(want)}"
-    for label in sorted(hopper_bwd) + [f"{DQ_SUM}_bf16"]:
+    for label in sorted(hopper_bwd | paged) + [f"{DQ_SUM}_bf16"]:
         assert out[label]["spill_stores"] in (0, None) and \
             out[label]["spill_loads"] in (0, None), (label, out[label])
     REPORT["ptxas_warnings"] = warns
@@ -1202,7 +1404,7 @@ def training():
         holder[0], m = step(holder[0], tokens)
         float(m["loss"])
 
-    busy = device_busy(one_step, 1)
+    busy = device_busy(one_step, 1, want={WGMMA_BWD: L, DQ_SUM: L})
     assert busy is not None, "no device events in the train step trace"
     assert busy["fwd_kernels"] and all(
         WGMMA_FWD in n for n in busy["fwd_kernels"]), busy
@@ -1250,7 +1452,8 @@ def long_sequence_training():
 
     # A second step, profiled: the bf16 split route is the two Hopper
     # kernels once per layer, with no CUDA-core or fused backward.
-    busy = device_busy(one_step, 1)
+    busy = device_busy(one_step, 1,
+                       want={WGMMA_BWD_DQ: L, WGMMA_BWD_DKV: L})
     assert busy is not None, "no device events in the long step's trace"
     n = busy["launches"]
     assert n.get("flash_bwd_dq_wgmma") == L and \
@@ -1423,13 +1626,20 @@ def main():
     main_paged = REPORT["paged"][0]
     main_flash = REPORT["flash"][0]
     kernels = [
+        # ms: the wrapper by CUDA events; kernel_ms: the pair's device
+        # span (split start to combine end) from a profiler trace.
         dict(name="paged_decode_attention", route="cuda",
              source="ray_tpu_torch/ops/csrc/paged_decode.cu",
              replaces="ray_tpu/ops/pallas/paged_decode.py:45",
              launches=REPORT["serve_engine"]["paged_launches"],
              max_abs_err=main_paged["max_abs_err"],
              tolerance=main_paged["tolerance"], ms=main_paged["ms"],
-             kernel_ms=main_paged["ms"], plain_ms=main_paged["plain_ms"],
+             kernel_ms=main_paged["kernel_ms"],
+             split_ms=main_paged["split_ms"],
+             combine_ms=main_paged["combine_ms"],
+             host_us=main_paged["host_us"],
+             kernel=[PAGED_SPLIT, PAGED_COMBINE],
+             plain_ms=main_paged["plain_ms"],
              bound_ms=main_paged["bound_ms"],
              bound_by=main_paged["bound_by"], library_ms=None,
              shape=main_paged["shape"] + " bf16"),

@@ -8,7 +8,7 @@ needs that has no JAX in it is copied, not imported).
 The slices so far are LLM serving and training on the GPT family:
 
   * ops/attention.py        — dense causal attention (plain PyTorch)
-  * ops/paged_decode.py     — paged decode/verify attention, CUDA kernel
+  * ops/paged_decode.py     — paged decode/verify attention, CUDA kernels
                                in ops/csrc/paged_decode.cu
   * ops/flash.py            — flash attention forward (with and without
                                the LSE, ops/csrc/flash_fwd.cu), fused and

@@ -3,8 +3,8 @@ ray_tpu.llm):
 
   * llm/kv_cache.py   — paged KV pool + PrefixPool (hash-indexed,
                          ref-counted prefix cache with COW)
-  * ops/paged_decode.py — decode attention through block tables, a CUDA
-                         kernel on the card (plain PyTorch on the CPU)
+  * ops/paged_decode.py — decode attention through block tables, CUDA
+                         kernels on the card (plain PyTorch on the CPU)
   * models/gpt.py     — forward_prefill / forward_decode /
                          forward_prefill_chunk
   * llm/engine.py     — Orca-style iteration-level scheduler

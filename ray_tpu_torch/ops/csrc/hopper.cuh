@@ -1,7 +1,8 @@
 // Building blocks of the Hopper (sm_90a) flash kernels, shared by
 // flash_fwd.cu and flash_bwd.cu: mbarriers, TMA loads, wgmma shared-memory
 // descriptors and the wgmma instructions, and the host-side encoding of
-// the TMA tensor maps.
+// the TMA tensor maps. paged_decode.cu uses the mbarriers and the 1-D bulk
+// copy (`bulk_load`).
 //
 // Every tile these kernels read with wgmma is stored with the 128-byte
 // swizzle (TMA's CU_TENSOR_MAP_SWIZZLE_128B, or the same XOR written by

@@ -36,8 +36,9 @@ def test_editing_an_included_header_changes_the_library_name(tmp_path,
 
 
 def test_the_flash_sources_hash_their_shared_header():
+    # The paged decode source uses the header's mbarrier and bulk-copy
+    # helpers too: all three libraries are rebuilt when it changes.
     srcs = _build.sources()
-    for name in ("flash_fwd", "flash_bwd"):
+    for name in ("flash_fwd", "flash_bwd", "paged_decode"):
         incs = _build._local_includes(srcs[name])
         assert [p.name for p in incs] == ["hopper.cuh"], name
-    assert _build._local_includes(srcs["paged_decode"]) == []
