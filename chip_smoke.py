@@ -20,8 +20,10 @@ Phases, each asserting what it checks (any failure exits non-zero):
      other block sizes, head dims and groups, verify, and the edge cases
      (a padded lane on the scratch block, contexts at and one past a
      128-key chunk, a full table, verify with q_lens < q_len and rows
-     whose bound ends a chunk early), its output bitwise equal over two
-     calls (decode and verify, both dtypes); the flash
+     whose bound ends a chunk early, verify at the speculative engine's
+     shape: b 8, 12 kv heads, group 1, 5 rows a lane, with short and
+     padded lanes), its output bitwise equal over two calls (decode and
+     verify, both dtypes); the flash
      forward also at other layouts, GQA, dense, sq != sk and head dims
      16-128 (48 and 80: the bf16 kernel's padded TMA boxes), causal
      sq > sk, in both dtypes, and a profiler trace shows bf16 launching
@@ -77,12 +79,40 @@ Phases, each asserting what it checks (any failure exits non-zero):
      that shape ([1, 16384, 12, 64] bf16) against their plain versions
      (run two heads at a time), timed as in phase 7, with the peak
      device memory of the checks, and the forward at head dims 48 and
-     80 (two heads) at that length.
+     80 (two heads) at that length;
+ 11. speculative serving: GPT-2-small bf16 with use_flash, 8 threaded
+     requests whose prompts repeat n-grams, through
+     ``LLMEngine(speculative={"mode": "ngram", "k": 4})`` and again with
+     the target as its own draft (``"draft"``): every decode step is a
+     verify step (the paged pair's q_len > 1 route, once per layer by
+     the counters), proposals are made and accepted, and
+     ``stats()["last_step"]`` names the card and gives its spans as
+     dispatch-to-ready, pricing nothing against them; a profiled verify
+     step of the engine shows the paged split and combine kernels once
+     per layer and paged_attention_kernel never; the accept rate and
+     output tokens
+     per verify step; a verify step's wall and device ms beside a plain
+     decode step's at the same batch and contexts (b 8, contexts 512,
+     k + 1 = 5 rows a lane), and the verify route at exactly that step's
+     inputs against its plain version (bf16 and f32);
+ 12. speculative token streams in f32 at GPT-2-small's width: n-gram and
+     draft speculation give the spec-off engine's tokens, greedy and
+     sampled (a difference fails the phase and prints its first position
+     and the target's top-2 logit gap there);
+ 13. the fused backward's dq workspace cap: at bf16 [2, 8192, 12, 64]
+     (3.2 GB of dq workspace in the fused route, over the 256 MiB cap)
+     FlashAttention's backward takes the split route by the counters,
+     bitwise equal to a direct split call and over two calls, against
+     the plain version (two heads at a time), as is the fused kernel's
+     one launch; the routed call's peak device memory beside that
+     launch's, and both routes' times; the routes ``bwd_route`` names
+     at the training shape (bf16 fused, f32 split) and at [32, 10752].
 
-Prints a ``{"serving": ...}`` line, a ``{"training": ...}`` line, the
-card line, a ``{"kernels": [...]}`` line and, last, ``{"ok": true,
-"device": {...}}``. Everything measured, the whole run's wall time
-included, goes to smoke_out/chip_smoke.json as well.
+Prints a ``{"serving": ...}`` line, a ``{"speculative": ...}`` line, a
+``{"training": ...}`` line, the card line, a ``{"kernels": [...]}`` line
+and, last, ``{"ok": true, "device": {...}}``. Everything measured, the
+whole run's wall time included, goes to smoke_out/chip_smoke.json as
+well.
 """
 
 from __future__ import annotations
@@ -210,41 +240,86 @@ def host_us(fn, calls: int = 100, reps: int = 20) -> float:
     return statistics.median(res)
 
 
+# torch.cuda._sleep's kernel, which nothing this script profiles launches
+# but device_events' own spin kernels: the preamble's, the hold in front
+# of the clock check and the ~1 ms one that checks the window's clock.
+SPIN = "spin_kernel"
+_PREAMBLE = 8
+CAL_CYCLES = HOLD_CYCLES // 2
+CAL_TOL = 0.03
+WINDOW_TRIES = 5
+
+
 def device_events(fn, calls: int, flush: bool = False,
                   want: dict | None = None) -> list:
     """The device (CUDA) events of a torch.profiler window in which
     ``fn`` runs ``calls`` times, the 50 MB L2 flushed before each call
     when ``flush``. A complete window has device events and, for each
-    kernel name in ``want``, that many events whose name contains it.
-    CUPTI now and then hands back a window with no device event at all,
-    or with some of them lost (seen on chip runs of this script at the
-    parent commit too, in a different phase each time): such a window is
-    taken again, at most three times, and the last one is returned for
-    the caller's own checks to fail on."""
+    kernel name in ``want``, that many events whose name contains it,
+    and its clock agrees with CUDA events.
+
+    Two faults of CUPTI's traces show once the process has run for a
+    minute or so, whatever ran before. It loses the first few device
+    events of a window (the first two to four of twenty in traces of
+    phase 10's window), so each window starts with ``_PREAMBLE`` spin
+    kernels and a sync. And in some windows the durations come out
+    short, by up to half (a dq sum read at twice the card's HBM rate),
+    so each window ends with a sync, a hold spin and a spin kernel of
+    ``CAL_CYCLES`` between two CUDA events (the hold keeps the host's
+    enqueue out of them): a window whose trace gives that spin a
+    duration off by more than ``CAL_TOL`` is not complete. No spin
+    kernel's event is returned. CUPTI also now and then hands back a
+    window with no device event at all, or loses its last events (then
+    the clock spin too). An incomplete window is taken again, at most
+    ``WINDOW_TRIES`` times in all, and the last one is returned for the
+    caller's own checks to fail on (a clock that never agreed is counted
+    in the report's ``unchecked_clock_windows``)."""
     from torch.profiler import ProfilerActivity, profile
 
     global _FLUSH
     if flush and _FLUSH is None:
         _FLUSH = torch.empty(128 << 20, dtype=torch.uint8, device=DEV)
-    for _ in range(3):
+    for _ in range(WINDOW_TRIES):
         torch.cuda.synchronize()
+        cal = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         with warnings.catch_warnings():
             # The profiler warns once that events are cleared per cycle;
             # this window is one cycle.
             warnings.simplefilter("ignore", UserWarning)
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
+                for _ in range(_PREAMBLE):
+                    torch.cuda._sleep(1)
+                torch.cuda.synchronize()
                 for _ in range(calls):
                     if flush:
                         _FLUSH.zero_()
                     fn()
                 torch.cuda.synchronize()
-        events = [e for e in prof.events()
+                torch.cuda._sleep(HOLD_CYCLES)
+                cal[0].record()
+                torch.cuda._sleep(CAL_CYCLES)
+                cal[1].record()
+                torch.cuda.synchronize()
+        device = [e for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        if events and all(sum(k in e.name for e in events) == n
-                          for k, n in (want or {}).items()):
+        events = [e for e in device if SPIN not in e.name]
+        spins = [e.time_range for e in device if SPIN in e.name]
+        cal_ms = cal[0].elapsed_time(cal[1])
+        traced_ms = (max(spins, key=lambda t: t.start).elapsed_us() / 1e3
+                     if spins else 0.0)
+        clock_ok = abs(traced_ms / cal_ms - 1) <= CAL_TOL
+        got = {k: sum(k in e.name for e in events) for k in want or {}}
+        if events and clock_ok and all(got[k] == n
+                                       for k, n in (want or {}).items()):
             return events
         REPORT["retaken_traces"] = REPORT.get("retaken_traces", 0) + 1
+        log(f"[trace] window retaken: {len(events)} device events; want "
+            f"{want}, got {got}; clock spin {traced_ms:.4f} ms traced, "
+            f"{cal_ms:.4f} ms by CUDA events")
+    if not clock_ok:
+        REPORT["unchecked_clock_windows"] = REPORT.get(
+            "unchecked_clock_windows", 0) + 1
     return events
 
 
@@ -435,8 +510,25 @@ def check_paged():
                          k_paged.paged_verify_attention_reference(*args),
                          q_lens)
         assert torch.equal(out, k_paged.paged_verify_attention(*args))
+        # The speculative engine's verify shape (phase 11): b 8, 12 kv
+        # heads, group 1, k + 1 = 5 rows a lane (two row tiles of 4, the
+        # second holding one row), lanes with every proposal, with fewer,
+        # with none, and padded lanes (context 1 on the scratch block,
+        # one row), as _run_verify lays them out.
+        c = paged_case(dtype, b=8, hkv=12, group=1, d=64, bs=16, max_nb=64,
+                       q_len=5, seed=23, lens=[517, 1024, 1, 131, 300, 1,
+                                               64, 5])
+        q_lens = torch.tensor([5, 5, 1, 3, 1, 1, 4, 2], dtype=torch.int32,
+                              device=DEV)
+        args = (c["q"], c["k"], c["v"], c["tables"], c["lens"], q_lens)
+        out = k_paged.paged_verify_attention(*args)
+        e3 = paged_check(dtype, "paged verify, engine shape", out,
+                         k_paged.paged_verify_attention_reference(*args),
+                         q_lens)
+        assert torch.equal(out, k_paged.paged_verify_attention(*args))
         edges.append(dict(dtype=str(dtype).split(".")[-1], decode_err=e1,
-                          verify_err=e2, repeatable=True))
+                          verify_err=e2, engine_verify_err=e3,
+                          repeatable=True))
         log(f"[2] paged edges {edges[-1]}")
     REPORT["paged_edges"] = edges
     return rows
@@ -918,6 +1010,289 @@ def preempt_resume():
     out = dict(preemptions_roomy=p0, preemptions_tight=p1,
                tokens=sum(len(t) for t in tight))
     log(f"[6] preempt/resume: {out}")
+    return out
+
+
+# --------------------------------------------------------------- phase 11
+
+SPEC_NGRAM = {"mode": "ngram", "k": 4}
+SPEC_DRAFT = {"mode": "draft", "k": 4}
+
+
+def loopy_prompts(seed: int, lengths) -> list:
+    """Prompts that repeat an n-gram: a random 12-token base repeated to
+    each length, the text the n-gram proposer finds its proposals in."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for n in lengths:
+        base = rng.integers(0, 50257, size=12).tolist()
+        out.append((base * (n // 12 + 1))[:n])
+    return out
+
+
+def threaded_requests(eng, prompts, max_tokens: int, temps) -> tuple:
+    """One client thread a prompt against a started engine: (requests,
+    the tokens each client streamed, wall seconds)."""
+    reqs = [None] * len(prompts)
+    done = [None] * len(prompts)
+
+    def client(i):
+        r = eng.add_request(prompts[i], max_tokens=max_tokens, seed=i,
+                            temperature=temps[i])
+        reqs[i] = r
+        done[i] = list(r.tokens())
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in threads), "a client hung"
+    return reqs, done, time.perf_counter() - t0
+
+
+def verify_step_trace(eng) -> dict:
+    """The engine, its loop stopped, steps one more request by hand
+    until its prefill is done; the next step, a verify step and nothing
+    else, is profiled: the paged pair once per layer, the old kernel
+    never. Returns the trace's paged launches and the step's own
+    accounting (``stats()["last_step"]``)."""
+    eng.stop()
+    eng.add_request(loopy_prompts(40, [100])[0], max_tokens=128)
+    for _ in range(100):
+        v0 = eng.stats()["spec"]["verify_steps"]
+        eng.step()
+        if eng.stats()["spec"]["verify_steps"] > v0:
+            break
+    seen = []
+
+    def one_step():   # a window taken again steps again: check the last
+        a = eng.stats()
+        eng.step()
+        seen.append((a, eng.stats()))
+
+    L = eng.cfg.n_layer
+    busy = device_busy(one_step, 1, want={PAGED_SPLIT: L, PAGED_COMBINE: L})
+    s0, s1 = seen[-1]
+    eng.stop()
+    assert busy is not None, "no device events in the verify step"
+    assert s1["spec"]["verify_steps"] == s0["spec"]["verify_steps"] + 1 \
+        and s1["prefill_chunks"] == s0["prefill_chunks"] and \
+        s1["decode_steps"] == s0["decode_steps"], (s0, s1)
+    check_paged_trace(busy, L, "phase 11 verify step")
+    return dict(kernels={k: v for k, v in busy["kernel_launches"].items()
+                         if k in (PAGED_SPLIT, PAGED_COMBINE)},
+                device_ms=busy, last_step=s1["last_step"])
+
+
+def spec_serving(params16):
+    """Phase 11: the engine's speculative path at GPT-2-small bf16."""
+    cfg = gpt.GPTConfig(dtype=torch.bfloat16, use_flash=True)
+    L = cfg.n_layer
+    lengths = [64, 96, 128, 160, 192, 256, 320, 384]
+    prompts = loopy_prompts(11, lengths)
+    temps = [0.8 if i % 4 == 3 else 0.0 for i in range(len(prompts))]
+    card_h100 = "H100" in torch.cuda.get_device_name(0)
+    out = {}
+    for name, spec, max_tokens in (("ngram", SPEC_NGRAM, 64),
+                                   ("draft", SPEC_DRAFT, 16)):
+        eng = LLMEngine(params16, cfg, num_blocks=8 * 64 + 1, block_size=16,
+                        max_batch=8, speculative=spec, device=DEV)
+        eng.start()
+        try:
+            warm = eng.add_request(list(range(1, 40)), max_tokens=4)
+            list(warm.tokens())
+            before = eng.stats()
+            lanes0 = eng._spec.verified_lanes
+            reset_counts()
+            reqs, done, wall = threaded_requests(eng, prompts, max_tokens,
+                                                 temps)
+            seen = counts()
+            after = eng.stats()
+            lanes = eng._spec.verified_lanes - lanes0
+        finally:
+            eng.stop()
+        for r, toks in zip(reqs, done):
+            assert r.finish_reason == "length" and \
+                len(r.output) == max_tokens, (r.finish_reason, len(r.output))
+            assert toks == r.output
+        sb, sa = before["spec"], after["spec"]
+        d = {k: sa[k] - sb[k] for k in ("proposed", "accepted", "emitted",
+                                        "verify_steps", "rolled_back")}
+        prefills = after["prefill_chunks"] - before["prefill_chunks"]
+        # Every decode step of a speculative engine is a verify step: the
+        # paged pair once per layer each, launched by the wrapper.
+        assert after["decode_steps"] == before["decode_steps"], (before,
+                                                                 after)
+        assert d["verify_steps"] > 0 and seen["paged"] == L * \
+            d["verify_steps"], (seen, d)
+        if name == "ngram":
+            assert seen["launches"] == L * prefills, (seen, prefills)
+        else:   # the draft's forwards take the primal flash kernel too
+            assert seen["launches"] > L * prefills, (seen, prefills)
+        assert all(seen[n] == 0 for n in _FLASH_COUNTERS[1:]), seen
+        assert d["proposed"] > 0 and d["accepted"] > 0, d
+        last = after["last_step"]
+        assert ("H100" in last["hardware"]) == card_h100, last
+        # The engine's spans on the card are dispatch-to-ready: nothing
+        # is priced against them (llm/engine.py).
+        assert last["dispatch_to_ready_ms"] > 0 and all(
+            last[k] is None for k in ("device_ms", "mfu", "hbm_util",
+                                      "verdict")), last
+        row = dict(requests=len(reqs), max_tokens=max_tokens,
+                   generated_tokens=sum(len(r.output) for r in reqs),
+                   wall_s=wall, tokens_per_s=sum(len(r.output) for r in reqs)
+                   / wall, accept_rate=d["accepted"] / d["proposed"],
+                   output_tokens_per_verify_step=d["emitted"]
+                   / d["verify_steps"], verified_lanes=lanes,
+                   output_tokens_per_lane_step=d["emitted"] / lanes, **d,
+                   prefills=prefills,
+                   paged_launches=seen["paged"],
+                   flash_launches=seen["launches"], last_step=last,
+                   ttft_p50_ms=statistics.median(
+                       (r.first_token_t - r.submit_t) * 1e3 for r in reqs))
+        if name == "ngram":
+            row["verify_trace"] = verify_step_trace(eng)
+            assert ("H100" in row["verify_trace"]["last_step"]["hardware"]) \
+                == card_h100
+        out[name] = row
+        log(f"[11] speculative serving, {name}: {row}")
+    out["step_breakdown"] = verify_breakdown(params16)
+    return out
+
+
+def verify_breakdown(params16):
+    """A verify step beside a plain decode step at GPT-2-small bf16, the
+    same batch (8) and contexts (512 resident tokens a lane): one
+    forward_verify of k + 1 = 5 rows a lane, one forward_decode of one.
+    Wall time is the host clock around work ending in a sync
+    (unprofiled); device busy time and its split by kernel come from a
+    profiled window."""
+    cfg = gpt.GPTConfig(dtype=torch.bfloat16)
+    bs, B, ctx, Q = 16, 8, 512, SPEC_NGRAM["k"] + 1
+    pool = PagedKVCache(cfg, num_blocks=B * 64 + 1, block_size=bs,
+                        device=DEV)
+    nb = (ctx + Q) // bs + 1
+    tables = torch.zeros((B, 64), dtype=torch.int32)
+    for i in range(B):
+        tables[i, :nb] = torch.arange(1 + i * 64, 1 + i * 64 + nb)
+    tables = tables.to(DEV)
+    tok1 = torch.arange(B, dtype=torch.int32, device=DEV)
+    pos1 = torch.full((B,), ctx, dtype=torch.int32, device=DEV)
+    sb1 = tables[:, ctx // bs].contiguous()
+    so1 = torch.full((B,), ctx % bs, dtype=torch.int32, device=DEV)
+    lens1 = pos1 + 1
+    rows = torch.arange(Q, device=DEV)
+    tokq = torch.arange(B * Q, dtype=torch.int32, device=DEV).view(B, Q)
+    posq = (ctx + rows).to(torch.int32).expand(B, Q).contiguous()
+    sbq = tables[:, (ctx + rows) // bs].contiguous()
+    soq = ((ctx + rows) % bs).to(torch.int32).expand(B, Q).contiguous()
+    lensq = torch.full((B,), ctx + Q, dtype=torch.int32, device=DEV)
+    qlens = torch.full((B,), Q, dtype=torch.int32, device=DEV)
+
+    def decode():
+        logits, _, _ = gpt.forward_decode(params16, tok1, pos1, pool.k,
+                                          pool.v, tables, lens1, sb1, so1,
+                                          cfg)
+        logits[:B].float().cpu()
+
+    def verify():
+        logits, _, _ = gpt.forward_verify(params16, tokq, posq, pool.k,
+                                          pool.v, tables, lensq, qlens, sbq,
+                                          soq, cfg)
+        logits[:B].float().cpu()
+
+    out = {}
+    L = cfg.n_layer
+    for name, fn in (("decode", decode), ("verify", verify)):
+        times = []
+        for _ in range(25):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        wall = statistics.median(times[5:])
+        busy = device_busy(fn, 5, want={PAGED_SPLIT: 5 * L,
+                                        PAGED_COMBINE: 5 * L})
+        assert busy is not None, f"no device events in the {name} trace"
+        check_paged_trace(busy, 5 * L, f"phase 11 {name}")
+        out[name] = dict(wall_ms=wall, device_ms=busy,
+                         device_idle_share=max(0.0, 1 - busy["total"] / wall))
+    # The verify route at exactly these inputs (layer 0's pool filled at
+    # random, random rows), against its plain version, both dtypes.
+    kp, vp = pool.k[0], pool.v[0]
+    kp.copy_(randn(kp.shape, kp.dtype, 41))
+    vp.copy_(randn(vp.shape, vp.dtype, 42))
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q = randn((B, Q, cfg.n_head, 1, cfg.d_model // cfg.n_head), dtype, 43)
+        args = (q, kp.to(dtype), vp.to(dtype), tables, lensq, qlens)
+        got = k_paged.paged_verify_attention(*args)
+        errs[str(dtype).split(".")[-1]] = paged_check(
+            dtype, "phase 11 verify inputs", got,
+            k_paged.paged_verify_attention_reference(*args), qlens)
+        assert torch.equal(got, k_paged.paged_verify_attention(*args))
+    out["verify_route_err"] = errs
+    out["rows_per_lane"] = {"decode": 1, "verify": Q}
+    out["shape"] = f"b{B} contexts {ctx} block {bs}"
+    log(f"[11] verify vs decode step (b{B} ctx{ctx}, {Q} rows a lane): {out}")
+    return out
+
+
+# --------------------------------------------------------------- phase 12
+
+def first_difference(a, b) -> int:
+    return next(j for j in range(min(len(a), len(b)) + 1)
+                if j == min(len(a), len(b)) or a[j] != b[j])
+
+
+def spec_token_check():
+    """Phase 12: GPT-2-small f32 with use_flash, 4 requests (2 greedy, 2
+    sampled) whose prompts repeat n-grams: the n-gram and the draft
+    engine emit the spec-off engine's tokens."""
+    cfg = gpt.GPTConfig(dtype=torch.float32, use_flash=True)
+    params = gpt.init(cfg, gen(31), device=DEV)
+    prompts = loopy_prompts(32, [40, 70, 100, 130])
+    reqs = [dict(prompt=p, max_tokens=24, seed=i,
+                 temperature=0.0 if i % 2 == 0 else 0.9)
+            for i, p in enumerate(prompts)]
+
+    def run(spec):
+        eng = LLMEngine(params, cfg, num_blocks=4 * 64 + 1, block_size=16,
+                        max_batch=4, speculative=spec, device=DEV)
+        hs = [eng.add_request(**r) for r in reqs]
+        for _ in range(1000):
+            s = eng.stats()
+            if not s["in_flight"] and not s["waiting"]:
+                break
+            eng.step()
+        assert all(h.finish_reason == "length" for h in hs)
+        return [list(h.output) for h in hs], eng.stats().get("spec")
+
+    off, _ = run(None)
+    out = {}
+    for name, spec in (("ngram", SPEC_NGRAM), ("draft", SPEC_DRAFT)):
+        got, stats = run(spec)
+        for i, (a, b) in enumerate(zip(got, off)):
+            if a == b:
+                continue
+            j = first_difference(a, b)
+            seq = reqs[i]["prompt"] + b[:j]
+            logits, _, _ = gpt.forward_prefill(
+                params, torch.tensor([seq], device=DEV), cfg)
+            top = logits[0, -1].float().topk(2).values
+            raise AssertionError(
+                f"phase 12 {name}: request {i} (temperature "
+                f"{reqs[i]['temperature']}) differs from spec-off at output "
+                f"position {j} (token {len(seq)}): {a[j:j + 3]} vs "
+                f"{b[j:j + 3]}; the target's top-2 logit gap there is "
+                f"{float(top[0] - top[1]):.3g}")
+        assert stats["proposed"] > 0, stats
+        out[name] = dict(equal=True, tokens=sum(len(t) for t in got),
+                         spec=stats)
+        log(f"[12] speculative tokens f32, {name}: {out[name]}")
     return out
 
 
@@ -1587,6 +1962,92 @@ def check_long_kernels():
     return rows
 
 
+# --------------------------------------------------------------- phase 13
+
+def fused_workspace_cap():
+    """Phase 13: the fused backward's dq workspace cap. At bf16 [2, 8192,
+    12, 64] the reference's rule takes the fused kernel, whose f32 dq
+    workspace would be 3.2 GB; over ``_FUSED_BWD_WORKSPACE_BYTES``,
+    ``FlashAttention``'s backward (the training path's) takes the split
+    route, which needs none: by the counters, bitwise equal to a direct
+    split call and over two calls, held against the plain version (two
+    heads at a time) at phase 7's tolerance, as is the one fused launch;
+    the routed call's peak device memory beside that launch's, and the
+    two routes' times. The training shape keeps the fused kernel."""
+    b, s, h, d, dtype = 2, 8192, 12, 64, torch.bfloat16
+    cap = k_flash._FUSED_BWD_WORKSPACE_BYTES
+    ws = k_flash.fused_bwd_workspace_bytes(b, h, s, s, d, dtype)
+    assert k_flash._fused_bwd_fits(s, s, d, 2) and ws > cap, (ws, cap)
+    routes = {f"{name} b{bb} s{ss}": k_flash.bwd_route(bb, h, ss, ss, d, dt,
+                                                       512)
+              for name, dt, bb, ss in (("bf16", dtype, b, s),
+                                       ("bf16", dtype, 32, 10752),
+                                       ("bf16", dtype, 8, 1023),
+                                       ("f32", torch.float32, 8, 1023))}
+    assert routes == {"bf16 b2 s8192": "split", "bf16 b32 s10752": "split",
+                      "bf16 b8 s1023": "fused", "f32 b8 s1023": "split"}, \
+        routes
+    q, k, v, do = train_inputs(b, s, h, h, d, dtype, 100)
+
+    def measured(fn):
+        """(fn's result, the counters, peak bytes above what was held
+        before the call)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, counts(), torch.cuda.max_memory_allocated() - base
+
+    def routed():
+        qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+        k_flash.FlashAttention.apply(qs, ks, vs, True, "bshd", 512).backward(
+            do)
+        return qs.grad, ks.grad, vs.grad
+
+    got, seen, extra = measured(routed)
+    assert (seen["lse_launches"], seen["bwd_dq_launches"],
+            seen["bwd_dkv_launches"], seen["bwd_fused_launches"]) == \
+        (1, 1, 1, 0), seen
+    # The routed call never holds the fused route's workspace.
+    assert extra < ws, (extra, ws)
+    o, lse = k_flash.flash_attention_fwd_lse(q, k, v)
+    args = (q, k, v, o, lse, do)
+    split = k_flash.flash_attention_bwd_split(*args)
+    for name, a, w in zip(("dq", "dk", "dv"), got, split):
+        assert torch.equal(a, w), f"routed vs split {name} differ"
+    what = f"b{b} s{s} h{h} d{d} bf16"
+    check_repeatable(split, args, {}, "split " + what,
+                     fn=k_flash.flash_attention_bwd_split)
+    del got
+    fused, _, extra_fused = measured(
+        lambda: k_flash.flash_attention_bwd_fused(*args))
+    assert extra_fused >= ws, (extra_fused, ws)
+    ref = by_head_groups(k_flash.flash_attention_bwd_reference, args)
+    err, rel = check_grads(split, ref, dtype, "routed (split) " + what)
+    err_f, rel_f = check_grads(fused, ref, dtype, "fused " + what)
+    del ref, fused, split
+    torch.cuda.empty_cache()
+    times = {"split": time_ms(
+        lambda: k_flash.flash_attention_bwd_split(*args), 5),
+        "fused_one_launch": time_ms(
+        lambda: k_flash.flash_attention_bwd_fused(*args), 5)}
+    out = dict(shape=f"b{b} s{s} h{h} d{d} causal bshd bf16",
+               cap_bytes=cap, fused_workspace_bytes=ws, routes=routes,
+               launches=seen, max_abs_err=err, rel_err=rel,
+               fused_max_abs_err=err_f, fused_rel_err=rel_f,
+               tolerance=GRAD_RTOL_BF16, tolerance_on="relative norm",
+               bitwise_equal_split=True,
+               peak_above_inputs_bytes=extra,
+               fused_peak_above_inputs_bytes=extra_fused,
+               wrapper_ms=times)
+    log(f"[13] fused backward workspace cap: {out}")
+    del q, k, v, do, o, lse
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     t_start = time.perf_counter()
     card = card_line()
@@ -1622,6 +2083,17 @@ def main():
     REPORT["training"] = training()
     REPORT["long_training"] = long_sequence_training()
     REPORT["long_kernels"] = check_long_kernels()
+    # Phases 11-12 run after the training phases, so that the training
+    # phases' many profiler windows come early in the process
+    # (device_events: CUPTI's faults show as the process ages).
+    params16 = gpt.working_params(gpt.init(cfg16, gen(3), device=DEV),
+                                  cfg16)
+    REPORT["spec_serving"] = spec_serving(params16)
+    del params16
+    torch.cuda.empty_cache()
+    REPORT["spec_tokens"] = spec_token_check()
+    torch.cuda.empty_cache()
+    REPORT["fused_cap"] = fused_workspace_cap()
 
     main_paged = REPORT["paged"][0]
     main_flash = REPORT["flash"][0]
@@ -1639,6 +2111,10 @@ def main():
              combine_ms=main_paged["combine_ms"],
              host_us=main_paged["host_us"],
              kernel=[PAGED_SPLIT, PAGED_COMBINE],
+             verify_launches=REPORT["spec_serving"]["ngram"][
+                 "paged_launches"],
+             verify_step_paged_ms=REPORT["spec_serving"]["step_breakdown"][
+                 "verify"]["device_ms"]["paged_decode"],
              plain_ms=main_paged["plain_ms"],
              bound_ms=main_paged["bound_ms"],
              bound_by=main_paged["bound_by"], library_ms=None,
@@ -1686,8 +2162,18 @@ def main():
             shape=at["shape"] + " bf16"))
         if label == "bwd_fused":
             # ms is the route's two kernels: the Hopper kernel and the
-            # ordered dq sum; kernel_ms the Hopper kernel alone.
-            kernels[-1].update(dq_sum_ms=row["dq_sum_ms"])
+            # ordered dq sum; kernel_ms the Hopper kernel alone. Over the
+            # workspace cap (phase 13) the training path takes the split
+            # route: the wrapper times of both routes there and their
+            # peak memory.
+            fc = REPORT["fused_cap"]
+            kernels[-1].update(
+                dq_sum_ms=row["dq_sum_ms"], cap_shape=fc["shape"],
+                cap_route=fc["routes"]["bf16 b2 s8192"],
+                cap_wrapper_ms=fc["wrapper_ms"],
+                cap_peak_above_inputs_bytes=dict(
+                    split=fc["peak_above_inputs_bytes"],
+                    fused_one_launch=fc["fused_peak_above_inputs_bytes"]))
         elif label != "fwd_lse":
             kernels[-1].update(
                 kernel=SPLIT_KERNELS[torch.bfloat16][label == "bwd_dkv"])
@@ -1696,6 +2182,22 @@ def main():
                    tokens_per_s=se["tokens_per_s"],
                    ttft_p50_ms=se["ttft_p50_ms"],
                    decode_step_ms=REPORT["breakdown"]["decode"]["wall_ms"])
+    ss = REPORT["spec_serving"]
+    spec_line = dict(card=card, model="GPT-2-small bf16 use_flash", **{
+        name: dict(accept_rate=ss[name]["accept_rate"],
+                   output_tokens_per_verify_step=ss[name][
+                       "output_tokens_per_verify_step"],
+                   output_tokens_per_lane_step=ss[name][
+                       "output_tokens_per_lane_step"],
+                   tokens_per_s=ss[name]["tokens_per_s"],
+                   last_step_hardware=ss[name]["last_step"]["hardware"])
+        for name in ("ngram", "draft")},
+        verify_step_ms={n: dict(wall=ss["step_breakdown"][n]["wall_ms"],
+                                device=ss["step_breakdown"][n]["device_ms"][
+                                    "total"])
+                        for n in ("decode", "verify")},
+        f32_tokens_equal=all(r["equal"]
+                             for r in REPORT["spec_tokens"].values()))
     train_line = dict(card=card, model=tr["model"], batch=tr["batch"],
                       seq=tr["seq"], losses=tr["losses"],
                       median_step_ms=tr["median_step_ms"],
@@ -1708,6 +2210,7 @@ def main():
     with open(os.path.join("smoke_out", "chip_smoke.json"), "w") as f:
         json.dump(REPORT, f, indent=1, default=str)
     print(json.dumps({"serving": serving}))
+    print(json.dumps({"speculative": spec_line}))
     print(json.dumps({"training": train_line}))
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -20,7 +20,9 @@ The slices so far are LLM serving and training on the GPT family:
   * models/convert.py       — weights and optimizer state to and from
                                the JAX/optax trees
   * optim.py                — optax's adamw and apply_updates
-  * llm/                    — paged KV pool, prefix cache, engine
+  * llm/                    — paged KV pool, prefix cache, engine,
+                               speculative decoding (llm/spec.py)
+  * util/perfmodel.py       — the step cost model and its H100 peaks
   * serve/llm.py            — byte tokenizer and the LLMServer handler
 
 Entry points run on the card (``device=None`` means ``"cuda"``) and

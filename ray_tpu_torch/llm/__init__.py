@@ -6,9 +6,14 @@ ray_tpu.llm):
   * ops/paged_decode.py — decode attention through block tables, CUDA
                          kernels on the card (plain PyTorch on the CPU)
   * models/gpt.py     — forward_prefill / forward_decode /
-                         forward_prefill_chunk
-  * llm/engine.py     — Orca-style iteration-level scheduler
-  * llm/sampling.py   — (seed, position)-keyed host sampling
+                         forward_prefill_chunk / forward_verify
+  * llm/engine.py     — Orca-style iteration-level scheduler, each step
+                         priced by util/perfmodel.py
+  * llm/spec.py       — speculative decoding (n-gram / small-draft
+                         proposers verified in one paged-attention
+                         pass; output bit-identical either way)
+  * llm/sampling.py   — (seed, position)-keyed host sampling and the
+                         verify samplers
 """
 
 from .engine import (  # noqa: F401
@@ -21,4 +26,11 @@ from .engine import (  # noqa: F401
     Request,
 )
 from .kv_cache import PagedKVCache, PrefixPool  # noqa: F401
-from .sampling import sample  # noqa: F401
+from .sampling import rejection_sample, sample, verify_tokens  # noqa: F401
+from .spec import (  # noqa: F401
+    DraftProposer,
+    NgramProposer,
+    Proposer,
+    SpecConfig,
+    SpecDecoder,
+)

@@ -30,15 +30,38 @@ bump instead of recomputed, with copy-on-write on a shared tail) and
 CHUNKED PREFILL (``prefill_chunk_tokens=N``: at most N uncached prompt
 tokens per step, so running decode streams emit a token every step).
 
-The device work is the model's forwards (models/gpt.py) on
-``device``; the decode step runs the paged decode kernel and a
-whole-prompt prefill with ``cfg.use_flash`` the flash kernel. Decode
-shapes are fixed (``[max_batch]`` lanes, ``[max_batch, max_nb]``
-tables), so the step can later be captured as a CUDA graph.
+And one decode-path optimization (opt-in, ``speculative=...``):
+SPECULATIVE DECODING (llm/spec.py) — a proposer guesses up to k next
+tokens per sequence and ONE verify forward (models/gpt.py
+``forward_verify``) scores k+1 positions per lane through the paged
+kernel pair's verify route; the accepted prefix plus one corrected/bonus
+token emit in a single step. Because sampling is keyed by (seed,
+position) alone, acceptance is an equality check against the replayed
+keyed draw — the output token stream is bit-identical to
+non-speculative decoding, preemption and all.
 
-Not ported yet (each listed in ROADMAP.md): speculative decoding
-(``speculative`` must be None), the perfmodel step accounting, the
-telemetry gauges and request tracing.
+The device work is the model's forwards (models/gpt.py) on
+``device``; the decode step runs the paged decode kernel, the verify
+step its verify route, and a whole-prompt prefill with ``cfg.use_flash``
+the flash kernel. Decode and verify shapes are fixed (``[max_batch]``
+or ``[max_batch, k+1]`` rows, ``[max_batch, max_nb]`` tables), so the
+step can later be captured as a CUDA graph.
+
+Every step is priced by the cost model (util/perfmodel.py): each
+forward's span and its FLOPs and HBM bytes go into a
+``StepAccounting``, whose breakdown is ``stats()["last_step"]``. On the
+CPU the span is the host clock around the forward, which is its compute
+time: the breakdown is the reference's (step, device and host ms, MFU,
+HBM utilization, roofline verdict, the peak entry). On the card the
+span is CUDA events around the forward's enqueue: from its first kernel
+being queued to its last one's end, which on a host-bound step is the
+host's dispatch time, not the card's busy time. So there the breakdown
+gives it as ``dispatch_to_ready_ms`` with the step's FLOPs and HBM
+bytes, and ``device_ms``, ``mfu``, ``hbm_util`` and ``verdict`` are
+None: nothing here measures the card's busy time yet.
+
+Not ported yet (ROADMAP.md Queue 1 item 7): the telemetry gauges and
+the request-tracing spans.
 """
 
 from __future__ import annotations
@@ -56,9 +79,12 @@ import torch
 
 from .._device import resolve_device
 from ..models.gpt import (GPTConfig, forward_decode, forward_prefill,
-                          forward_prefill_chunk, working_params)
+                          forward_prefill_chunk, forward_verify,
+                          working_params)
+from ..util import perfmodel
 from .kv_cache import PagedKVCache, PrefixPool
-from .sampling import sample
+from .sampling import sample, verify_tokens
+from .spec import make_spec
 
 # Request states (the event vocabulary).
 WAITING = "WAITING"
@@ -107,7 +133,8 @@ class LLMEngine:
     driven either by the background loop (start()) or manually (tests).
     ``params`` is the port's param dict (models/gpt.py ``init`` or
     models/convert.py); the engine keeps one working-dtype copy on
-    ``device`` (``None`` means the card)."""
+    ``device`` (``None`` means the card, resolved before anything else
+    is built, a draft proposer included)."""
 
     def __init__(self, params, cfg: GPTConfig, *, num_blocks: int = 64,
                  block_size: int = 16, max_batch: int = 8,
@@ -115,9 +142,6 @@ class LLMEngine:
                  prefix_cache: bool = True,
                  speculative=None,
                  name: str = "llm", device=None):
-        if speculative is not None:
-            raise NotImplementedError(
-                "speculative decoding is not ported yet (llm/spec.py)")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.name = name
@@ -130,6 +154,13 @@ class LLMEngine:
                                      else int(prefill_chunk_tokens))
         self.params = working_params(params, cfg, self.device)
         self.max_nb = self.kv.blocks_for_tokens(cfg.max_seq)
+        # Speculative decoding (llm/spec.py): when enabled, decode runs
+        # through ONE verify forward scoring k+1 positions per lane
+        # (fixed q shape) and the accepted prefix + one corrected/bonus
+        # token all land in a single step. None keeps the plain
+        # one-token decode path.
+        self._spec = make_spec(speculative, target_params=self.params,
+                               target_cfg=cfg, device=self.device)
 
         self._lock = threading.Lock()
         self._cond = threading.Condition(self._lock)
@@ -149,6 +180,14 @@ class LLMEngine:
         self._stop = False
         self._prefill_chunks = 0      # chunk dispatches (whole=1 chunk)
         self._kv_util_peak = 0.0      # high-water pool utilization
+        # Device-step accounting: every forward's span and cost, priced
+        # by the cost model (util/perfmodel.py); on the card the spans are
+        # dispatch-to-ready, not busy time (module docstring). ``_spans``
+        # holds this step's (start, end, cost) until the step closes.
+        self._step_perf = perfmodel.StepAccounting(
+            perfmodel.detect_hardware(self.device),
+            busy_spans=self.device.type != "cuda")
+        self._spans: List[tuple] = []
 
     # -- events ------------------------------------------------------------
 
@@ -306,6 +345,38 @@ class LLMEngine:
     def _tensor(self, arr) -> torch.Tensor:
         return torch.from_numpy(arr).to(self.device, non_blocking=True)
 
+    def _device_call(self, cost: perfmodel.StepCost, fn, *args):
+        """Run one forward and charge its span and ``cost`` to the step.
+        On the card: CUDA events recorded on the current stream around
+        the forward, read when the step closes (after the logits' host
+        copy, which waits for them anyway); no synchronize per layer.
+        The first event fires as soon as the stream reaches it, so the
+        span is dispatch-to-ready. On the CPU: the host clock around the
+        call."""
+        if self.device.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args)
+            end.record()
+            self._spans.append((start, end, cost))
+        else:
+            t0 = time.perf_counter()
+            out = fn(*args)
+            self._spans.append((time.perf_counter() - t0, None, cost))
+        return out
+
+    def _charge_device(self):
+        """Fold this step's device spans into its accounting."""
+        for start, end, cost in self._spans:
+            if end is None:          # the CPU: seconds on the host clock
+                seconds = start
+            else:
+                end.synchronize()
+                seconds = start.elapsed_time(end) / 1e3
+            self._step_perf.add_device(seconds, cost)
+        self._spans.clear()
+
     def _run_prefills(self):
         """Prefill newly admitted requests one sequence at a time
         (prompt lengths are ragged, padded to a block multiple). The
@@ -336,12 +407,16 @@ class LLMEngine:
             if budget is not None:
                 budget -= c
             pad = -c % bs or 0
+            # Only the UNCACHED span is priced: ctx_tokens covers what was
+            # skipped or ran in earlier chunks, keeping MFU honest.
+            cost = perfmodel.prefill_cost(self.cfg, c + pad, ctx_tokens=upto)
             if upto == 0 and c == T:
                 # Cold whole-prompt prefill: the classic one-shot path.
                 toks = np.zeros((1, T + pad), np.int32)
                 toks[0, :T] = seq
-                logits, k, v = forward_prefill(
-                    self.params, self._tensor(toks), self.cfg)
+                logits, k, v = self._device_call(
+                    cost, forward_prefill, self.params, self._tensor(toks),
+                    self.cfg)
             else:
                 # Incremental span [upto, upto+c) attending resident
                 # context (earlier chunks and/or prefix-cache hits).
@@ -352,10 +427,10 @@ class LLMEngine:
                     self.cfg.max_seq - 1)
                 table = np.zeros((self.max_nb,), np.int32)
                 table[:len(req.block_table)] = req.block_table
-                logits, k, v = forward_prefill_chunk(
-                    self.params, self._tensor(toks),
-                    self._tensor(positions), self.kv.k, self.kv.v,
-                    self._tensor(table), upto, self.cfg)
+                logits, k, v = self._device_call(
+                    cost, forward_prefill_chunk, self.params,
+                    self._tensor(toks), self._tensor(positions), self.kv.k,
+                    self.kv.v, self._tensor(table), upto, self.cfg)
             # Export the chunk's cache: [L, 1, c, Hkv, d] -> pool blocks
             # upto/bs onward (upto is block-aligned by construction).
             self.kv.write_prefill(
@@ -443,32 +518,163 @@ class LLMEngine:
             slot_offsets[i] = slot % bs
             context_lens[i] = slot + 1
             tables[i, :len(req.block_table)] = req.block_table
-        logits, _, _ = forward_decode(
-            self.params, self._tensor(tokens), self._tensor(positions),
-            self.kv.k, self.kv.v, self._tensor(tables),
-            self._tensor(context_lens), self._tensor(slot_blocks),
-            self._tensor(slot_offsets), self.cfg)
+        cost = perfmodel.decode_step_cost(
+            self.cfg, [r.context_len + 1 for r in batch])
+        logits, _, _ = self._device_call(
+            cost, forward_decode, self.params, self._tensor(tokens),
+            self._tensor(positions), self.kv.k, self.kv.v,
+            self._tensor(tables), self._tensor(context_lens),
+            self._tensor(slot_blocks), self._tensor(slot_offsets), self.cfg)
         self._decode_steps += 1
         # The host sync: the live lanes' logits rows.
         rows = logits[:len(batch)].float().cpu().numpy()
         for i, req in enumerate(batch):
             req.context_len += 1
             self._sample_into(req, rows[i])
+        # The reference's per-request decode-step spans (tracing.emit)
+        # come with the port of util/tracing.py (ROADMAP.md Queue 1
+        # item 7).
+
+    def _run_verify(self):
+        """Speculative decode step: propose up to k tokens per lane,
+        write current + proposals into their pool slots, and score all
+        q = k+1 positions in ONE batched forward through the paged
+        kernel pair's verify route (models/gpt.py forward_verify).
+        verify_tokens then accepts the longest proposal prefix matching
+        the target's keyed draws and emits one corrected/bonus token —
+        several output tokens per step at exactly the non-speculative
+        token stream. Rejected slots are rolled back with kv.truncate();
+        the [max_batch, k+1] shapes are fixed, lanes with fewer live rows
+        padding onto scratch block 0 exactly like padded decode lanes."""
+        batch = [r for r in self._active if r.state == RUNNING]
+        if not batch:
+            return
+        spec = self._spec
+        props: Dict[int, List[int]] = {}
+        for req in batch:
+            # Proposal budget: never past max_tokens (the final token
+            # is sampled, not proposed), never past the block span the
+            # admission check guaranteed, never past max_seq positions.
+            budget = min(
+                req.max_tokens - len(req.output) - 1,
+                len(req.prompt) + req.max_tokens - req.context_len - 1,
+                self.cfg.max_seq - req.context_len - 1)
+            props[req.rid] = spec.propose(
+                req.rid, req.prompt + req.output, budget)
+        for req in list(batch):
+            if req.state == RUNNING:
+                self._ensure_slots(req, 1 + len(props[req.rid]))
+        batch = [r for r in batch if r.state == RUNNING]
+        if not batch:
+            return
+        B = self.max_batch
+        Q = spec.k + 1
+        bs = self.kv.block_size
+        tokens = np.zeros((B, Q), np.int32)
+        positions = np.zeros((B, Q), np.int32)
+        slot_blocks = np.zeros((B, Q), np.int32)
+        slot_offsets = np.zeros((B, Q), np.int32)
+        context_lens = np.ones((B,), np.int32)
+        q_lens = np.ones((B,), np.int32)
+        tables = np.zeros((B, self.max_nb), np.int32)
+        for i, req in enumerate(batch):
+            slot = req.context_len
+            p = props[req.rid]
+            n = 1 + len(p)
+            # Row 0 feeds the last sampled token (a FULL prefix-cache
+            # hit re-feeds its held-back last position — the verify
+            # fast start: its FIRST step already carries proposals);
+            # rows 1..n-1 feed the proposals. Rows n..Q-1 are padding:
+            # scratch block 0, positions clipped in range — their
+            # logits are garbage and never read (q_lens masks them in
+            # the kernel and the host loop stops at n).
+            tokens[i, 0] = (req.prompt[slot] if slot < len(req.prompt)
+                            else req.output[slot - len(req.prompt)])
+            tokens[i, 1:n] = p
+            positions[i] = np.minimum(slot + np.arange(Q, dtype=np.int32),
+                                      self.cfg.max_seq - 1)
+            # A lane's rows may span two blocks: each row's block comes
+            # from its own slot.
+            for j in range(n):
+                slot_blocks[i, j] = req.block_table[(slot + j) // bs]
+                slot_offsets[i, j] = (slot + j) % bs
+            context_lens[i] = slot + n
+            q_lens[i] = n
+            tables[i, :len(req.block_table)] = req.block_table
+            spec.verify(req.rid, len(p))
+        spec.verify_steps += 1
+        # Verify pricing is honest about speculation's bet: k+1 rows of
+        # FLOPs are burned regardless of how many tokens are accepted.
+        cost = perfmodel.verify_step_cost(
+            self.cfg, [int(context_lens[i]) for i in range(len(batch))],
+            [int(q_lens[i]) for i in range(len(batch))])
+        logits, _, _ = self._device_call(
+            cost, forward_verify, self.params, self._tensor(tokens),
+            self._tensor(positions), self.kv.k, self.kv.v,
+            self._tensor(tables), self._tensor(context_lens),
+            self._tensor(q_lens), self._tensor(slot_blocks),
+            self._tensor(slot_offsets), self.cfg)
+        # The host sync: the live lanes' logits rows.
+        rows = logits[:len(batch)].float().cpu().numpy()
+        for i, req in enumerate(batch):
+            p = props[req.rid]
+            n = 1 + len(p)
+            slot = req.context_len
+            start_pos = len(req.prompt) + len(req.output)
+            n_acc, emitted = verify_tokens(
+                rows[i, :n], p, temperature=req.temperature,
+                top_k=req.top_k, seed=req.seed, start_pos=start_pos)
+            spec.accept(req.rid, n_acc, len(p), len(emitted))
+            for idx, tok in enumerate(emitted):
+                # Bookkeeping BEFORE emitting: an accepted token IS
+                # resident (its slot was written this step), the final
+                # corrected/bonus token is NOT (its draw replaced a
+                # rejected row / was never written) — so a mid-stream
+                # finish registers exactly the resident span.
+                if idx < n_acc:
+                    req.context_len = slot + 2 + idx
+                else:
+                    req.context_len = slot + 1 + n_acc
+                if self._emit_token(req, tok):
+                    break
+            n_rej = len(p) - n_acc
+            if n_rej:
+                # Rejected slots past the accept cursor: any whole
+                # blocks they spilled into go back to the pool (a
+                # finished lane already released everything).
+                freed = (self.kv.truncate(req.block_table,
+                                          req.context_len)
+                         if req.block_table else [])
+                spec.rollback(req.rid, n_rej, len(freed))
+        # The reference's per-request decode-step spans (tracing.emit)
+        # come with the port of util/tracing.py (ROADMAP.md Queue 1
+        # item 7).
 
     def step(self) -> int:
         """One scheduler iteration: admit -> prefill -> decode one token
-        for every running sequence. Returns the number of in-flight
-        sequences after the step."""
+        for every running sequence (with speculation on, the decode is
+        a verify step that may emit several). Returns the number of
+        in-flight sequences after the step."""
         with self._lock:
+            self._step_perf.begin()
             self._admit()
             # High-water utilization INSIDE the step (post-admission and
             # post-decode, before finishes drain it).
             util_hw = self.kv.utilization()
             self._run_prefills()
-            self._run_decode()
+            if self._spec is not None:
+                self._run_verify()
+            else:
+                self._run_decode()
             self._kv_util_peak = max(self._kv_util_peak, util_hw,
                                      self.kv.utilization())
             self._steps += 1
+            # Close the step's accounting (None on a no-work step) into
+            # the process-local device-step ring.
+            self._charge_device()
+            self._step_perf.finish(
+                record_as="llm.step",
+                attrs={"deployment": self.name, "step": self._steps})
             self.step_log.append(
                 (self._steps, tuple(r.rid for r in self._active)))
             return len(self._active)
@@ -502,6 +708,13 @@ class LLMEngine:
             out["kv_cache_hit_rate"] = ps["hit_rate"]
             out["kv_shared_blocks"] = ps["shared_blocks"]
             out["prefix"] = ps
+        if self._spec is not None:
+            ss = self._spec.stats()
+            out["spec_accept_rate"] = ss["accept_rate"]
+            out["spec_tokens_per_step"] = ss["tokens_per_step"]
+            out["spec"] = ss
+        if self._step_perf.last is not None:
+            out["last_step"] = dict(self._step_perf.last)
         return out
 
     # -- background loop ---------------------------------------------------

@@ -24,8 +24,10 @@ The inference forwards (continuous-batching engine, llm/engine.py):
 for the paged pool; ``forward_decode`` runs one token per sequence,
 writes its K/V into the pool and attends through the paged decode
 kernel; ``forward_prefill_chunk`` runs one prompt chunk against the
-pool context. They run under ``torch.no_grad()``. ``forward_verify``
-belongs to a later slice.
+pool context; ``forward_verify`` (speculative decoding) runs q rows per
+sequence, the current token and its proposals, writes their K/V into the
+pool and attends through the paged kernel's verify route. They run under
+``torch.no_grad()``.
 """
 
 from __future__ import annotations
@@ -83,6 +85,21 @@ class GPTConfig:
     @property
     def ff(self) -> int:
         return self.d_ff or 4 * self.d_model
+
+    def num_params(self) -> int:
+        m, f, L = self.d_model, self.ff, self.n_layer
+        attn = m * m * 2 + 2 * m * (self.kv_heads * self.head_dim)
+        mlp = 2 * m * f
+        return (self.vocab_size * m + self.max_seq * m
+                + L * (attn + mlp + 2 * m) + m)
+
+    def flops_per_token(self) -> float:
+        """Training FLOPs/token, 6*N + the attention term
+        (util/perfmodel.py, the engine's step accounting prices against
+        the same formulas)."""
+        from ..util import perfmodel
+
+        return perfmodel.train_flops_per_token(self)
 
 
 TINY = GPTConfig(vocab_size=512, max_seq=128, d_model=128, n_layer=2, n_head=4)
@@ -439,6 +456,64 @@ def forward_decode(params, tokens, positions, k_pool, v_pool,
             q.reshape(B, hkv, group, cfg.head_dim), kp, vp,
             block_tables, context_lens)
         x = x + _out_proj(o.reshape(B, cfg.n_head, cfg.head_dim), p["wo"])
+        x = x + _mlp(x, p)
+    return _logits(params, x, dt), k_pool, v_pool
+
+
+@torch.no_grad()
+def forward_verify(params, tokens, positions, k_pool, v_pool,
+                   block_tables, context_lens, q_lens, slot_blocks,
+                   slot_offsets, cfg: GPTConfig):
+    """Speculative-verify step: score q = k+1 positions per sequence in
+    ONE batched forward (ray_tpu/models/gpt.py:387-454).
+
+    The decode step generalized to ``q`` query rows per lane: row 0 is
+    the lane's current (last sampled, not yet written) token and rows
+    1..q-1 its proposed continuation. Each layer projects all rows' K/V,
+    writes them in place into the paged pool at (slot_blocks,
+    slot_offsets) — write-then-attend, like decode — then attends
+    through ``paged_verify_attention`` (the paged kernel pair's q_len > 1
+    route), causal within the speculative span. The engine reads the
+    q_lens[lane] leading logits rows to accept or reject proposals; the
+    K/V of rejected rows stays in the pool past the lane's context and
+    is never attended.
+
+    Args:
+      tokens / positions: [b, q] int. Rows past q_lens[lane] are
+        padding: their slots point at the reserved scratch block 0
+        (padding rows collide there; it is never read unmasked) and
+        their logits are garbage the engine never reads.
+      k_pool / v_pool: [L, kv_heads, num_blocks, block_size, head_dim].
+      block_tables: [b, max_nb] int32, 0-padded.
+      context_lens: [b] int — resident tokens per lane INCLUDING its
+        q_lens real rows.
+      q_lens: [b] int — real rows per lane (1 = plain decode lane).
+      slot_blocks / slot_offsets: [b, q] int — each row's write site.
+
+    Returns (logits [b, q, vocab], k_pool, v_pool) (the same pool
+    tensors).
+    """
+    from ..ops.paged_decode import paged_verify_attention
+
+    dt = cfg.dtype
+    B, Q = tokens.shape
+    hkv, group, hd = cfg.kv_heads, cfg.n_head // cfg.kv_heads, cfg.head_dim
+    sb, so = slot_blocks.long(), slot_offsets.long()
+    x = _embed(params, tokens, positions, dt)              # [b, q, m]
+    for i in range(cfg.n_layer):
+        p = _layer(params, i, dt)
+        kp, vp = k_pool[i], v_pool[i]
+        h = _layernorm(x, p["ln1"])
+        q = _proj(h, p["wq"])                               # [b, q, h, d]
+        k_tok = _proj(h, p["wk"])                           # [b, q, hkv, d]
+        v_tok = _proj(h, p["wv"])
+        # Cache write for every row before attending: [hkv, b, q, d] at
+        # the rows' (block, offset) sites.
+        kp[:, sb, so] = k_tok.to(kp.dtype).permute(2, 0, 1, 3)
+        vp[:, sb, so] = v_tok.to(vp.dtype).permute(2, 0, 1, 3)
+        o = paged_verify_attention(q.reshape(B, Q, hkv, group, hd), kp, vp,
+                                   block_tables, context_lens, q_lens)
+        x = x + _out_proj(o.reshape(B, Q, cfg.n_head, hd), p["wo"])
         x = x + _mlp(x, p)
     return _logits(params, x, dt), k_pool, v_pool
 

@@ -33,9 +33,10 @@ it replaces, what bounds it on the H100, and what its design does about
 that. ``FlashAttention`` is the ``autograd.Function`` of the
 JAX package's custom VJP (``_make_op``): its forward takes the LSE
 route and saves ``(q, k, v, o, lse)``; its backward picks the fused or
-the split kernels with ``_fused_bwd_fits``, a copy of the reference's
-rule and its 12 MiB budget, so the same shapes take the same path in
-both packages.
+the split kernels with ``bwd_route``: ``_fused_bwd_fits``, a copy of the
+reference's rule and its 12 MiB budget, so the same shapes take the same
+path in both packages, and the fused route's dq workspace cap
+``_FUSED_BWD_WORKSPACE_BYTES``, which the reference has no need of.
 
 Semantics are those of ``flash_attention_pallas``: layouts "bshd"
 ([batch, seq, heads, head_dim]) and "bhsd"; causal masking aligned
@@ -72,6 +73,12 @@ _HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128)
 # setting the budget to 0. Sizes are the reference's padded lengths
 # (``_padded``).
 _FUSED_BWD_VMEM_BUDGET = 12 * 1024 * 1024
+# The most bytes of f32 dq workspace the fused route may take. Its
+# workspace [key tiles, b, h, sq, d] grows with b·h·s², which the rule
+# above does not read (the Pallas kernel keeps dq in VMEM): above the cap
+# ``FlashAttention``'s backward takes the split route, which needs no
+# workspace (``bwd_route``). A test may set it.
+_FUSED_BWD_WORKSPACE_BYTES = 256 * 1024 * 1024
 
 
 def _fused_bwd_fits(sq_p: int, sk_p: int, d: int, itemsize: int) -> bool:
@@ -479,6 +486,30 @@ def row_stats(lse, delta, block_q: int):
     return torch.stack(tiles, dim=3)
 
 
+def fused_bwd_workspace_bytes(b: int, h: int, sq: int, sk: int, d: int,
+                              dtype) -> int:
+    """Bytes of the fused route's f32 dq workspace for these shapes:
+    [key tiles, b, h, sq, d], as ``bwd_geometry(...).workspace_shape``."""
+    block_k = _F32_BLOCK if dtype == torch.float32 else _BWD_BLOCK_K
+    return 4 * -(-sk // block_k) * b * h * sq * d
+
+
+def bwd_route(b: int, h: int, sq: int, sk: int, d: int, dtype,
+              block: int) -> str:
+    """``FlashAttention``'s backward route, "fused" or "split": the fused
+    kernel while the reference's rule holds at its padded lengths
+    (``_fused_bwd_fits``) and its dq workspace fits
+    ``_FUSED_BWD_WORKSPACE_BYTES``; else the split kernels."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    if not _fused_bwd_fits(_padded(sq, block), _padded(sk, block), d,
+                           itemsize):
+        return "split"
+    if fused_bwd_workspace_bytes(b, h, sq, sk, d, dtype) > \
+            _FUSED_BWD_WORKSPACE_BYTES:
+        return "split"
+    return "fused"
+
+
 def _delta(o, do, h_ax):
     """Δ = Σ_d dO·O in f32, [b, h, sq] (flash.py:384-387)."""
     dl = (do.float() * o.float()).sum(-1)
@@ -489,7 +520,9 @@ def flash_attention_bwd_fused(q, k, v, o, lse, do, *, causal: bool = True,
                               layout: str = "bshd"):
     """dq, dk, dv of the flash forward in one kernel, given its output o,
     its lse [b, h, sq] and the output gradient do (o's layout). Inputs
-    and gradients share the layout; gradients are in the input dtype."""
+    and gradients share the layout; gradients are in the input dtype.
+    Its f32 dq workspace is ``fused_bwd_workspace_bytes``: the caller
+    picks the route (``FlashAttention`` by ``bwd_route``)."""
     s_ax, h_ax = _split(layout)
     _check_gqa(q, k, h_ax)
     if q.device.type == "cpu":
@@ -616,9 +649,8 @@ def flash_attention_bwd_reference(q, k, v, o, lse, do, *,
 class FlashAttention(torch.autograd.Function):
     """Flash attention with its hand-written backward (the JAX custom
     VJP of ``_make_op``): the forward takes the LSE route and saves
-    ``(q, k, v, o, lse)``; the backward takes the fused kernel while
-    ``_fused_bwd_fits`` holds for the reference's padded lengths, else
-    the split kernels.
+    ``(q, k, v, o, lse)``; the backward takes the fused kernel or the
+    split kernels by ``bwd_route``.
 
     ``FlashAttention.apply(q, k, v, causal, layout, block_size)``."""
 
@@ -634,10 +666,10 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         causal, layout, block = ctx.opts
-        s_ax, _ = _split(layout)
-        fits = _fused_bwd_fits(_padded(q.shape[s_ax], block),
-                               _padded(k.shape[s_ax], block), q.shape[-1],
-                               q.element_size())
-        bwd = flash_attention_bwd_fused if fits else flash_attention_bwd_split
+        s_ax, h_ax = _split(layout)
+        route = bwd_route(q.shape[0], q.shape[h_ax], q.shape[s_ax],
+                          k.shape[s_ax], q.shape[-1], q.dtype, block)
+        bwd = (flash_attention_bwd_fused if route == "fused"
+               else flash_attention_bwd_split)
         dq, dk, dv = bwd(q, k, v, o, lse, do, causal=causal, layout=layout)
         return dq, dk, dv, None, None, None

@@ -32,7 +32,8 @@ def flash_attention(q, k, v, *, causal: bool = True,
     forward and the backward kernels 64 x 64; ops/flash.py
     ``fwd_geometry``); as in the JAX package it sets the padded lengths
     by which the backward chooses the fused or the split kernels
-    (ops/flash.py ``_fused_bwd_fits``).
+    (ops/flash.py ``bwd_route``: the reference's ``_fused_bwd_fits`` and
+    the fused route's workspace cap).
     """
     _split(layout)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):

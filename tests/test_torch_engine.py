@@ -234,13 +234,14 @@ def test_entry_points_refuse_to_run_without_a_card():
         LLMServer(TCFG, TPARAMS)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tgpt.init(TCFG)
-    with pytest.raises(NotImplementedError):
-        LLMEngine(TPARAMS, TCFG, device="cpu", speculative={"k": 2})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LLMEngine(TPARAMS, TCFG, speculative={"k": 2})
 
 
 def test_import_leaves_jax_and_ray_tpu_out():
     code = ("import sys, ray_tpu_torch.llm, ray_tpu_torch.serve.llm, "
-            "ray_tpu_torch.ops.flash_attention, ray_tpu_torch.models.convert;"
+            "ray_tpu_torch.ops.flash_attention, ray_tpu_torch.models.convert,"
+            " ray_tpu_torch.llm.spec, ray_tpu_torch.util.perfmodel;"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'ray_tpu' or "
             "m.startswith('ray_tpu.'));"

@@ -23,6 +23,13 @@ version and against the JAX package's Pallas backward in interpret mode
 at the kernel's tiles: bf16 gradients by relative norm error 3e-2, as
 chip_smoke.py holds the kernel on the card.
 
+The fused route's f32 dq workspace grows with b·h·s², which the
+reference's rule (``_fused_bwd_fits``) does not read: ``bwd_route``
+sends a call whose workspace passes ``_FUSED_BWD_WORKSPACE_BYTES`` (256
+MiB) to the split kernels, which need none. Its byte count is the
+geometry's, the route at the shapes that matter is the one reckoned for
+it, and ``FlashAttention``'s backward takes the route it names.
+
 At unequal lengths (causal sq 300 > sk 100, causal sq 100 < sk 300, and
 dense), the plain backward and the fused and split routes (their plain
 versions on CPU tensors) are held against the Pallas backward in
@@ -441,4 +448,81 @@ def test_unequal_lengths_match_pallas(case, route):
     for name, a, r in zip(("dq", "dk", "dv"), got, jg):
         assert a.shape == r.shape and a.dtype == torch.float32, name
         np.testing.assert_allclose(_np(a), r, atol=ATOL_GRAD, rtol=0,
+                                   err_msg=name)
+
+
+# ------------------------------------------- the dq workspace's cap
+
+CAP = 256 * 1024 * 1024
+
+
+def _meta(b, sq, sk, h, hk, d, dtype):
+    """Meta tensors of a bshd call and its dq/dk/dv: shapes and strides
+    only, nothing allocated."""
+    q, do, dq = (torch.empty((b, sq, h, d), dtype=dtype, device="meta")
+                 for _ in range(3))
+    k, v, dk, dv = (torch.empty((b, sk, hk, d), dtype=dtype, device="meta")
+                    for _ in range(4))
+    return q, k, v, do, dq, dk, dv
+
+
+@pytest.mark.parametrize("b,sq,sk,h,hk,d,dtype", [
+    (32, 10752, 10752, 12, 12, 64, torch.bfloat16),
+    (8, 1023, 1023, 12, 12, 64, torch.bfloat16),
+    (8, 1023, 1023, 12, 12, 64, torch.float32),
+    (2, 300, 100, 8, 2, 48, torch.bfloat16),
+    (3, 100, 300, 4, 1, 80, torch.float32)])
+def test_workspace_bytes_are_the_geometrys(b, sq, sk, h, hk, d, dtype):
+    geom = F.bwd_geometry(*_meta(b, sq, sk, h, hk, d, dtype), 1, 2)
+    assert F.fused_bwd_workspace_bytes(b, h, sq, sk, d, dtype) == \
+        4 * math.prod(geom.workspace_shape(h, sq, d))
+
+
+@pytest.mark.parametrize("b,s,dtype,gb,route", [
+    # 88.8 GB uncapped, more than the card holds.
+    (32, 10752, torch.bfloat16, 88.8, "split"),
+    # 3.2 GB: the reference's rule takes the fused kernel, the cap not.
+    (2, 8192, torch.bfloat16, 3.2, "split"),
+    # The training shape: 0.2 GB, the fused kernel as before the cap.
+    (8, 1023, torch.bfloat16, 0.2, "fused"),
+    # f32 takes 64-key tiles: twice the slots, 0.4 GB.
+    (8, 1023, torch.float32, 0.4, "split"),
+    (1, 2048, torch.bfloat16, 0.1, "fused"),
+    # Past the reference's 12 MiB rule, whatever the workspace.
+    (1, 16384, torch.bfloat16, 6.4, "split")])
+def test_route_at_the_shapes_that_matter(b, s, dtype, gb, route):
+    assert F._FUSED_BWD_WORKSPACE_BYTES == CAP
+    h, d = 12, 64
+    nbytes = F.fused_bwd_workspace_bytes(b, h, s, s, d, dtype)
+    assert round(nbytes / 1e9, 1) == gb
+    assert F.bwd_route(b, h, s, s, d, dtype, 512) == route
+    fits = F._fused_bwd_fits(F._padded(s, 512), F._padded(s, 512), d,
+                             torch.empty((), dtype=dtype).element_size())
+    assert fits == (s < 16384)
+    assert route == ("fused" if fits and nbytes <= CAP else "split")
+
+
+@pytest.mark.parametrize("over", [False, True])
+def test_flash_attention_takes_the_named_route(monkeypatch, over):
+    """With the cap one byte under the call's workspace the backward
+    takes the split kernels, at the workspace the fused one; either way
+    the gradients are the plain version's."""
+    b, s, h, hk, d = 2, 40, 4, 2, 16
+    x = _inputs(22, b, s, s, h, hk, d, "bshd")
+    q, k, v, g = (torch.from_numpy(a) for a in x)
+    nbytes = F.fused_bwd_workspace_bytes(b, h, s, s, d, q.dtype)
+    monkeypatch.setattr(F, "_FUSED_BWD_WORKSPACE_BYTES", nbytes - over)
+    taken = []
+    for name in ("flash_attention_bwd_fused", "flash_attention_bwd_split"):
+        fn = getattr(F, name)
+        monkeypatch.setattr(F, name, lambda *a, _n=name, _f=fn, **kw: (
+            taken.append(_n), _f(*a, **kw))[1])
+    qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
+    F.FlashAttention.apply(qs, ks, vs, True, "bshd", 512).backward(g)
+    assert taken == ["flash_attention_bwd_" + ("split" if over else "fused")]
+    o, lse = F.flash_attention_fwd_lse_reference(q, k, v)
+    ref = F.flash_attention_bwd_reference(q, k, v, o, lse, g)
+    for name, a, r in zip(("dq", "dk", "dv"), (qs.grad, ks.grad, vs.grad),
+                          ref):
+        np.testing.assert_allclose(_np(a), _np(r), atol=1e-6, rtol=0,
                                    err_msg=name)
